@@ -3,15 +3,28 @@
     python3 chip_smoke.py
 
 Phases, one line each:
-  1. device check and the kernel build (nvcc, sm_90a) from csrc/;
-  2. each of the six kernels against its plain PyTorch version on the card,
-     at the main path's shapes (n = 16384, r = 128, block 1024, MPF_BF16);
-  3. mpf_factorize at n = 16384, MPF_BF16, r = 128 on the HPL-AI matrix and
-     on the uniform (pivot-heavy) matrix: device fp64 oracle (nbe <= 1e-3),
-     perm consistent with ipiv, every kernel launched and no plain version
-     called in the main path's run, and the median of 3 timed runs.
-Then the card's name and power limit, one JSON line of per-kernel results,
-and as the last line the contract line
+  1. device check and the kernel build (nvcc, sm_90a, one process per
+     source, all started together) from csrc/;
+  2. kernels 1-6 of the fused path against their plain PyTorch versions on
+     the card, at the fused path's shapes (n = 16384, r = 128, block 1024,
+     MPF_BF16);
+  2b. kernels 7, 8, 8b and 9 of the masked path against their plain
+     versions at the masked path's shapes (m = 16384, r = 128; the slab
+     (16384, 1024) and the whole matrix for the row exchange);
+  3. the fused path: mpf_factorize at n = 16384, MPF_BF16, r = 128 on the
+     HPL-AI matrix and on the uniform (pivot-heavy) matrix: device fp64
+     oracle (nbe <= 1e-3), perm consistent with ipiv, kernels 1-6 launched
+     and no plain version called in the run, and the median of 3 timed runs;
+  4. the masked path: MPF_FP16 at n = 16384, r = 128 on both matrices
+     (nbe <= 5e-4, kernels 5-9 launched, 1-4 and 8b not, no plain version,
+     median of 3); MPF_BF16 at n = 4096, r = 48, block 1000 (uniform, nbe
+     <= 1e-3); pivot=False under PURE_FP32 at n = 16384 (HPL-AI, ipiv the
+     identity, nbe <= 1e-5).
+Then the card's name and power limit, one JSON line of per-kernel results
+(times, errors against the plain version, launches in the main path's run,
+the least time the card could take and the time of a PyTorch call that
+computes the same function, where one exists), and as the last line the
+contract line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure exits nonzero before that line.  No JAX is imported.
 """
@@ -27,7 +40,23 @@ import numpy as np
 import torch
 
 SLICE_N, SLICE_R, SLICE_BC = 16384, 128, 1024
-NBE_TOL = 1e-3  # the JAX package's MPF_BF16 oracle bound
+NBE_TOL = 1e-3       # the JAX package's MPF_BF16 oracle bound
+NBE_TOL_FP16 = 5e-4  # its MPF_FP16 bound (tests/test_mpf.py:70-72)
+NBE_TOL_FP32 = 1e-5  # its fp32-GEMM bound
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): bytes/s of HBM3, fp32
+# FLOP/s outside the tensor cores, bf16 FLOP/s on the tensor cores
+HBM_BPS, FP32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+FUSED = ("strip_pivots", "rowblock", "panel_update", "rows_exchange", "tri_inv",
+         "trailing_sub")
+MASKED = ("tri_inv", "trailing_sub", "hgetf2", "npv_inv", "laswp")
+
+
+def bound(nbytes: float, fp32_ops: float = 0.0, bf16_ops: float = 0.0):
+    """Least milliseconds the card could take: the larger of the bytes over
+    the HBM rate and the operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BPS
+    t_ops = fp32_ops / FP32_FLOPS + bf16_ops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 class SmokeError(RuntimeError):
@@ -87,7 +116,11 @@ def main() -> int:
         panel_apply_update_trim, panel_apply_update_trim_plain,
         rowblock_assemble, rowblock_assemble_plain,
         trailing_gemm_sub, trailing_gemm_sub_plain)
+    from mpf_tpu_torch.ops.panel_pallas import (
+        getf2_npv_block, getf2_npv_inv_block, getf2_npv_inv_plain, hgetf2_panel_plain,
+        hgetf2_panel_swaps, laswp_apply, laswp_plain)
     from mpf_tpu_torch.ops.panel_strip import strip_panel_pivots, strip_panel_pivots_plain
+    from mpf_tpu_torch.precision import cast_to_panel
     from mpf_tpu_torch.utils import matgen
     from mpf_tpu_torch.utils.oracle import check_factorization_device, ipiv_to_perm
     from mpf_tpu_torch.utils.timing import cuda_time, tflops
@@ -114,6 +147,10 @@ def main() -> int:
         "rows_exchange": "mpf_tpu/ops/exchange.py:88",
         "tri_inv": "mpf_tpu/ops/panel_pallas.py:466",
         "trailing_sub": "mpf_tpu/ops/panel_fused.py:687",
+        "hgetf2": "mpf_tpu/ops/panel_pallas.py:51",
+        "npv_inv": "mpf_tpu/ops/panel_pallas.py:219",
+        "npv": "mpf_tpu/ops/panel_pallas.py:388",
+        "laswp": "mpf_tpu/ops/panel_pallas.py:283",
     }
     source = {
         "strip_pivots": "mpf_tpu_torch/csrc/strip_pivots.cu",
@@ -122,13 +159,35 @@ def main() -> int:
         "rows_exchange": "mpf_tpu_torch/csrc/exchange.cu",
         "tri_inv": "mpf_tpu_torch/csrc/tri_inv.cu",
         "trailing_sub": "mpf_tpu_torch/csrc/gemm_sub.cu",
+        "hgetf2": "mpf_tpu_torch/csrc/hgetf2.cu",
+        "npv_inv": "mpf_tpu_torch/csrc/npv.cu",
+        "npv": "mpf_tpu_torch/csrc/npv.cu",
+        "laswp": "mpf_tpu_torch/csrc/laswp.cu",
     }
 
-    def record(name, abs_err, rel_err, ms, plain_ms):
+    def record(name, abs_err, rel_err, ms, plain_ms, bnd, library_ms, **extra):
         kern[name] = {"name": name, "route": "cuda", "source": source[name],
                       "replaces": replaces[name], "launches": 0,
                       "max_abs_err": float(abs_err), "rel_err": float(rel_err),
-                      "ms": float(ms), "plain_ms": float(plain_ms)}
+                      "ms": float(ms), "plain_ms": float(plain_ms),
+                      "bound_ms": float(bnd[0]), "bound_by": bnd[1],
+                      "library_ms": None if library_ms is None else float(library_ms),
+                      **extra}
+
+    def library(fn, reps: int = 5):
+        """ms of a PyTorch call that computes a kernel's function, or None
+        where this PyTorch build has no such call."""
+        try:
+            return event_ms(fn, reps)
+        except (RuntimeError, TypeError, NotImplementedError) as exc:
+            print(f"[INFO] library call unavailable: {exc}", flush=True)
+            return None
+
+    def panel_ops(m, off, r):
+        """fp32 operations of an r-column pivoted panel LU whose diagonal
+        is at row off of m rows: a divide and an update of the later
+        columns for every row below each diagonal."""
+        return sum((m - off - j - 1) * (1 + 2 * (r - j - 1)) for j in range(r))
 
     # ---------------- phase 2: kernels vs plain at the slice's shapes -------
     rng = np.random.default_rng(0)
@@ -169,7 +228,9 @@ def main() -> int:
     print(f"[INFO] k1_uniform_quant16 differing_pivots={ndiff} of {r}", flush=True)
     ms = event_ms(lambda: strip_panel_pivots(slab0, 0, pos0, torch.bfloat16, 0, r))
     pms = event_ms(lambda: strip_panel_pivots_plain(slab0, 0, pos0, torch.bfloat16, 0, r), 2)
-    record("strip_pivots", *errs(pairs1), ms, pms)
+    # panel read once (fp32), positions read and written, pivots written
+    record("strip_pivots", *errs(pairs1), ms, pms,
+           bound(4 * n * r + 8 * n + 8 * r, panel_ops(n, 0, r)), None)
 
     # #2 and #3 on panels of the uniform slab, where L21 is O(1), so a
     # missing L11^{-1} or update GEMM moves the result by O(1), and on the
@@ -248,8 +309,15 @@ def main() -> int:
             phase("k2_rowblock_zero_pivot", int(iz_k) == int(iz_p) == 2,
                   info_kernel=int(iz_k), info_plain=int(iz_p))
             del slab_z
-    record("rowblock", abs2, err2, ms2, pms2)
-    record("panel_update", abs3, err3, ms3, pms3)
+    # k2 at jj0 = 0: r pivot rows read, the row block and U11^-1 written;
+    # LU 2r^3/3, L^-1 and U^-1 r^3/3 each, U12 2 r^2 (bc - r)
+    record("rowblock", abs2, err2, ms2, pms2,
+           bound(4 * (2 * r * bc + r * r), 4 * r ** 3 / 3 + 2 * r * r * (bc - r)), None)
+    # k3 at jj0 = 0 (gemm_bf16): the rows below read and written; L21 in
+    # fp32 (2 m r^2), the update on bf16 operands (2 m r (bc - r))
+    m3 = n - r
+    record("panel_update", abs3, err3, ms3, pms3,
+           bound(8 * n * bc + 4 * r * bc, 2 * m3 * r * r, 2 * m3 * r * (bc - r)), None)
 
     # #4 exchange at block column k=1024: bit-exact
     k = bc
@@ -262,7 +330,12 @@ def main() -> int:
     err4 = errs([(pr_k, pr_p), (a_k, a_p)])
     ms = event_ms(lambda: rows_exchange(a_k, k, src, src))
     pms = event_ms(lambda: rows_exchange_plain(a_p, k, src, src))
-    record("rows_exchange", *err4, ms, pms)
+    src_l = src.long()
+    band_rows = torch.arange(k, k + bc, device=dev)
+    # index_select + index_copy_: the gather then the scatter of the rows
+    lib4 = library(lambda: a_p.index_copy_(0, src_l, a_p.index_select(0, band_rows)))
+    # bc pivot rows read and written, bc displaced band rows read and written
+    record("rows_exchange", *err4, ms, pms, bound(4 * n * 4 * bc), lib4)
     del a_k, a_p
 
     # #5 tri-inv leaves of a 1024 block: bit-exact
@@ -277,7 +350,15 @@ def main() -> int:
     err5 = errs(pairs5)
     ms = event_ms(lambda: tri_inv_leaves(l11, leaves))
     pms = event_ms(lambda: tri_inv_leaves_plain(l11, leaves), 2)
-    record("tri_inv", *err5, ms, pms)
+    sz = leaves[0][1]
+    stack = torch.stack([torch.tril(l11[o:o + s, o:o + s], -1)
+                         + torch.eye(s, device=dev) for o, s in leaves])
+    eye = torch.eye(sz, device=dev).expand_as(stack)
+    lib5 = library(lambda: torch.linalg.solve_triangular(stack, eye, upper=False,
+                                                         unitriangular=True))
+    # each leaf read and its inverse written; ~s^3/3 operations per leaf
+    record("tri_inv", *err5, ms, pms,
+           bound(sum(8 * s * s for _, s in leaves), sum(s ** 3 / 3 for _, s in leaves)), lib5)
 
     # #6 trailing GEMM at e = 1024 (bf16 operands, fp32 accumulation)
     e = bc
@@ -295,8 +376,124 @@ def main() -> int:
           outside_untouched=untouched)
     ms = event_ms(lambda: trailing_gemm_sub(a_k, l21, u12, e))
     pms = event_ms(lambda: trailing_gemm_sub_plain(a_p, l21, u12, e))
-    record("trailing_sub", err6, rel6, ms, pms)
-    del a_k, a_p, l21, u12, hpl
+    c6 = a_p[e:, e:]
+    lib6 = library(lambda: torch.addmm(c6, l21, u12, alpha=-1, out_dtype=torch.float32))
+    # the fp32 instance (MPF_FP16, MPF_REF, PURE_FP32) on the same shape
+    l21f, u12f = l21.float(), u12.float()
+    ms6f = event_ms(lambda: trailing_gemm_sub(a_k, l21f, u12f, e), 2)
+    lib6f = library(lambda: c6.addmm_(l21f, u12f, alpha=-1), 2)
+    mt = n - e
+    record("trailing_sub", err6, rel6, ms, pms,
+           bound(8 * mt * mt + 2 * 2 * mt * bc, 0, 2 * mt * mt * bc), lib6,
+           fp32_ms=ms6f, fp32_library_ms=lib6f,
+           fp32_bound_ms=bound(8 * mt * mt + 2 * 4 * mt * bc, 2 * mt * mt * bc)[0])
+    del a_k, a_p, l21, u12, l21f, u12f, c6
+    torch.cuda.empty_cache()
+
+    # ---------------- phase 2b: the masked path's kernels vs plain ----------
+    # #7 hgetf2: exact piv / perm / composed perm / srcs on the first panels
+    # of both matrices, in each panel dtype (fp16 saturated first, as
+    # MPF_FP16 does), at the diagonal offsets of the first and a middle panel
+    prev = torch.randperm(n, generator=torch.Generator().manual_seed(3)).to(
+        torch.int32).to(dev)
+    first_panels = {"hpl": slab0[:, :r], "uniform": uni[:, :r]}
+    pairs7, n7 = [], 0
+    for corpus, pan in first_panels.items():
+        for pdt in (torch.float16, torch.bfloat16, torch.float32):
+            inp = cast_to_panel(pan, T.MPF_FP16).contiguous() if pdt == torch.float16 else pan
+            for off in (0, 8192):
+                got = hgetf2_panel_swaps(inp, off, prev, panel_dtype=pdt)
+                ref = hgetf2_panel_plain(inp, off, prev, panel_dtype=pdt)
+                same = piv_eq(got, ref)
+                pairs7 += zip(got, ref)
+                n7 += 1
+                phase(f"k7_{corpus}_{str(pdt)[6:]}_off={off}", same,
+                      differing_pivots=int((got[0] != ref[0]).sum()))
+    # tie-heavy dyadic panel: many equal |values|, ties to the lowest position
+    dyp = torch.from_numpy(dyadic(rng, n, r)).to(dev)
+    for pdt in (torch.float16, torch.bfloat16):
+        got = hgetf2_panel_swaps(dyp, 0, prev, panel_dtype=pdt)
+        ref = hgetf2_panel_plain(dyp, 0, prev, panel_dtype=pdt)
+        pairs7 += zip(got, ref)
+        phase(f"k7_dyadic_ties_{str(pdt)[6:]}", piv_eq(got, ref))
+    p16 = cast_to_panel(uni[:, :r], T.MPF_FP16).contiguous()
+    ms7 = event_ms(lambda: hgetf2_panel_swaps(p16, 0, None, panel_dtype=torch.float16))
+    pms7 = event_ms(lambda: hgetf2_panel_plain(p16, 0, None, panel_dtype=torch.float16), 2)
+    # fp16 panel read once, prev read, perm and the composed map written
+    record("hgetf2", *errs(pairs7), ms7, pms7,
+           bound(2 * n * r + 12 * n + 12 * r, panel_ops(n, 0, r)), None)
+
+    # #8 / #8b on the diagonal blocks of the first panel (the masked path
+    # factors the pivoted slab's block), r = 128 in shared memory and r = 256
+    # in global memory; each output against the plain version relative to
+    # its own largest entry; info exact, including a forced zero pivot
+    def npv_checks(tag, blk):
+        k8, p8 = getf2_npv_inv_block(blk), getf2_npv_inv_plain(blk)
+        e8 = [rel(x, y) for x, y in zip(k8[:3], p8[:3])]
+        lu8b, info8b = getf2_npv_block(blk)
+        ok = (max(e8) <= 1e-5 and int(k8[3]) == int(p8[3]) == int(info8b)
+              and rel(lu8b, p8[0]) <= 1e-5)
+        phase(f"k8_{tag}", ok, rel_lu=f"{e8[0]:.3e}", rel_linv=f"{e8[1]:.3e}",
+              rel_uinv=f"{e8[2]:.3e}", info=int(k8[3]), lu_8b_exact=torch.equal(lu8b, p8[0]))
+        return list(zip(k8[:3], p8[:3]))
+    pairs8 = []
+    for corpus, full in (("hpl", slab0), ("uniform", uni)):
+        piv0, _, _, srcs0 = hgetf2_panel_swaps(full[:, :r], 0, None,
+                                               panel_dtype=torch.bfloat16)
+        blk = full[srcs0[:r].long(), :r].contiguous()     # the pivoted diagonal block
+        pairs8 += npv_checks(f"{corpus}_r128", blk)
+        zb = blk.clone()
+        zb[1] = zb[0]                                     # second pivot exactly 0
+        k8z, k8bz = getf2_npv_inv_block(zb)[3], getf2_npv_block(zb)[1]
+        phase(f"k8_{corpus}_zero_pivot", int(k8z) == int(k8bz) == 2, info=int(k8z))
+    w256 = torch.from_numpy(matgen.hpl_ai_matrix(256, seed=5)).to(dev)
+    pairs8 += npv_checks("hpl_r256_global_memory", w256)
+    blk128 = slab0[:r, :r].contiguous()
+    ms8 = event_ms(lambda: getf2_npv_inv_block(blk128))
+    pms8 = event_ms(lambda: getf2_npv_inv_plain(blk128), 2)
+    ms8b = event_ms(lambda: getf2_npv_block(blk128))
+    pms8b = event_ms(lambda: getf2_npv_inv_plain(blk128, False), 2)
+    lib8b = library(lambda: torch.linalg.lu_factor_ex(blk128, pivot=False))
+    record("npv_inv", *errs(pairs8), ms8, pms8,
+           bound(16 * r * r, 4 * r ** 3 / 3), None)
+    lu_pairs = [pr for i, pr in enumerate(pairs8) if i % 3 == 0]
+    record("npv", *errs(lu_pairs), ms8b, pms8b, bound(8 * r * r, 2 * r ** 3 / 3), lib8b)
+
+    # #9 on the slab view (16384, 1024) at block column 1024 with the 2r rows
+    # of a panel, and on the whole matrix with the 2 bc rows of a block
+    # column, both with duplicate cand entries carrying equal sources: exact
+    big = torch.from_numpy(matgen.random_dense(n, seed=4)).to(dev)
+    perm9 = torch.from_numpy(np.random.default_rng(5).permutation(n).astype(np.int32)).to(dev)
+    err9 = [0.0, 0.0]
+    cases9 = (("slab", lambda t: t[:, bc:2 * bc], 2 * r, 5000),
+              ("matrix", lambda t: t, 2 * bc, 0))
+    for tag, view, nswap, k9 in cases9:
+        cand = torch.cat([k9 + torch.arange(nswap // 2, device=dev, dtype=torch.int32),
+                          torch.from_numpy(np.random.default_rng(nswap).integers(
+                              k9, n, nswap // 2).astype(np.int32)).to(dev)])
+        src9 = perm9[cand.long()]
+        x9, y9 = big.clone(), big.clone()
+        laswp_apply(view(x9), cand, src9)
+        laswp_plain(view(y9), cand, src9)
+        dup = int(cand.numel() - torch.unique(cand).numel())
+        phase(f"k9_{tag}_nswap={nswap}", torch.equal(x9, y9), duplicate_cand=dup)
+        e9 = errs([(x9, y9)])
+        err9 = [max(err9[0], e9[0]), max(err9[1], e9[1])]
+        # timed on the same tensors after the check: each call exchanges again
+        if tag == "slab":
+            sl_x, sl_y = view(x9), view(y9)
+            ms9 = event_ms(lambda: laswp_apply(sl_x, cand, src9))
+            pms9 = event_ms(lambda: laswp_plain(sl_y, cand, src9))
+            src9l, cand9l = src9.long(), cand.long()
+            lib9 = library(lambda: sl_y.index_copy_(0, cand9l, sl_y.index_select(0, src9l)))
+            w9 = bc
+            b9 = bound(2 * nswap * w9 * 4)
+        else:
+            ms9m = event_ms(lambda: laswp_apply(x9, cand, src9), 3)
+            b9m = bound(2 * nswap * n * 4)[0]
+    del x9, y9, big
+    record("laswp", *err9, ms9, pms9, b9, lib9, matrix_ms=ms9m, matrix_bound_ms=b9m)
+    del hpl, slab0, uni, dyp, p16
     torch.cuda.empty_cache()
 
     # ---------------- phase 3: the main path --------------------------------
@@ -315,7 +512,8 @@ def main() -> int:
         plain = dict(_lib.plain_calls)
         if main_counts is None:
             main_counts = launched
-        counters_ok = all(v > 0 for v in launched.values()) and not any(plain.values())
+        counters_ok = (all(launched[k] > 0 for k in FUSED) and not any(plain.values())
+                       and not any(launched[k] for k in _lib.KERNELS if k not in FUSED))
         rep = check_factorization_device(a0, res.lu, res.ipiv, nbe_tol=NBE_TOL)
         perm = res.perm.long()
         is_perm = torch.equal(torch.sort(perm).values, torch.arange(n, device=dev))
@@ -336,8 +534,84 @@ def main() -> int:
         del a0, work, res
         torch.cuda.empty_cache()
 
+    # ---------------- phase 4: the masked path -----------------------------
+    def masked_run(tag, n4, r4, policy, corpus, gen, pivot, block, tol, timed,
+                   fused_panels, masked_panels):
+        """One factorization off the fused path.  ``fused_panels`` and
+        ``masked_panels`` are the routing the run must show, stated here and
+        not derived from the driver: a block column the fused gate admits
+        takes the fused path (the JAX package's routing) and launches kernels
+        1-3 once a panel; a masked panel launches kernel 8 once, and kernel 7
+        once when it pivots."""
+        a0 = torch.from_numpy(gen(n4, seed=0)).to(dev)
+        fac4 = T.make_mpf(n4, r=r4, policy=policy, pivot=pivot, block=block)
+        work = a0.clone()
+        torch.cuda.synchronize()
+        _lib.reset_counts()
+        t1 = time.perf_counter()
+        res = fac4(work)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t1
+        launched = dict(_lib.launches)
+        plain = dict(_lib.plain_calls)
+        want = set(MASKED if pivot else ("tri_inv", "trailing_sub", "npv_inv"))
+        if fused_panels:
+            want |= set(FUSED)
+        counters_ok = (all(launched[k] > 0 for k in want) and not any(plain.values())
+                       and not any(launched[k] for k in _lib.KERNELS if k not in want)
+                       and launched["strip_pivots"] == fused_panels
+                       and launched["npv_inv"] == masked_panels
+                       and launched["hgetf2"] == (masked_panels if pivot else 0))
+        rep = check_factorization_device(a0, res.lu, res.ipiv, nbe_tol=tol)
+        perm = res.perm.long()
+        is_perm = torch.equal(torch.sort(perm).values, torch.arange(n4, device=dev))
+        consistent = torch.equal(ipiv_to_perm(res.ipiv).to(dev), perm)
+        ident = torch.equal(res.ipiv.cpu(), torch.arange(1, n4 + 1, dtype=torch.int32))
+        finite = bool(torch.isfinite(res.lu).all())
+        fields = {}
+        if timed:
+            med, runs, _ = cuda_time(fac4, a0, warmup=1, iters=3,
+                                     setup=lambda x: (x.clone(),))
+            fields = {"median_ms": f"{med * 1e3:.2f}",
+                      "runs_ms": "/".join(f"{t * 1e3:.2f}" for t in runs),
+                      "tflops": f"{tflops(n4, med):.2f}"}
+        phase(f"masked_{tag}_{corpus}",
+              rep.ok and is_perm and consistent and finite and counters_ok
+              and int(res.info) == 0 and (pivot or ident),
+              n=n4, policy=policy.name, r=r4, block=block, pivot=pivot,
+              nbe=f"{rep.normwise_backward_err:.3e}", max_abs=f"{rep.max_abs_err:.3e}",
+              perm_ok=is_perm and consistent, ipiv_identity=ident, info=int(res.info),
+              fused_panels=fused_panels, masked_panels=masked_panels,
+              launches=json.dumps(launched, separators=(",", ":")),
+              plain_calls=sum(plain.values()), first_run_s=f"{first_s:.3f}", **fields,
+              card=f"'{smi}'")
+        del a0, work, res
+        torch.cuda.empty_cache()
+        return launched
+
+    # MPF_FP16 saturates, so nothing is fused: 128 masked panels of 128
+    masked_counts = None
+    for corpus, gen in (("hpl_ai", matgen.hpl_ai_matrix), ("uniform", matgen.random_dense)):
+        cnt = masked_run("mpf_fp16", n, r, T.MPF_FP16, corpus, gen, True, None,
+                         NBE_TOL_FP16, True, fused_panels=0, masked_panels=n // r)
+        masked_counts = masked_counts or cnt
+    # block columns 0..3000 are 1000 wide (1000 % 48 != 0): 4 x 21 masked
+    # panels; the last is 96 wide and passes the fused gate: 2 fused panels
+    masked_run("mpf_bf16_r48_block1000", 4096, 48, T.MPF_BF16, "uniform",
+               matgen.random_dense, True, 1000, NBE_TOL, False,
+               fused_panels=2, masked_panels=84)
+    # pivot=False is never fused
+    masked_run("pivot_false_pure_fp32", n, r, T.PURE_FP32, "hpl_ai", matgen.hpl_ai_matrix,
+               False, None, NBE_TOL_FP32, True, fused_panels=0, masked_panels=n // r)
+
     for name in _lib.KERNELS:
-        kern[name]["launches"] = int(main_counts[name])
+        counts = main_counts if name in FUSED else masked_counts
+        kern[name]["launches"] = int(counts[name])
+        if name in FUSED and name in MASKED:
+            kern[name]["launches_masked"] = int(masked_counts[name])
+        kern[name]["path"] = ("fused+masked" if name in FUSED and name in MASKED
+                              else "fused" if name in FUSED
+                              else "masked" if name in MASKED else "none (distributed path)")
     print(smi, flush=True)
     print(json.dumps({"kernels": [kern[k] for k in _lib.KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,10 +1,12 @@
 """mpf_tpu_torch — mixed-precision dense LU factorization on PyTorch + CUDA.
 
-The port of `mpf_tpu` (JAX/Pallas on a TPU) to one NVIDIA H100.  This slice
-is the single-device fused main path: `mpf_factorize` / `make_mpf` under
-the policies MPF_BF16 (default), MPF_REF and PURE_FP32, running six
-hand-written Hopper kernels (``csrc/``) on CUDA tensors and their plain
-PyTorch versions on CPU tensors.
+The port of `mpf_tpu` (JAX/Pallas on a TPU) to one NVIDIA H100: the
+single-device `mpf_factorize` / `make_mpf` under the policies MPF_BF16
+(default), MPF_REF, PURE_FP32 and MPF_FP16, with ``pivot=False``, a custom
+``panel_kernel`` and any r and block.  Block columns take the fused path
+or the masked path (the reference's own algorithm), running hand-written
+Hopper kernels (``csrc/``) on CUDA tensors and their plain PyTorch versions
+on CPU tensors.  A numpy input goes to ``cuda:0`` unless ``device="cpu"``.
 
 Layer map:
   L0 precision policy  -> mpf_tpu_torch.precision

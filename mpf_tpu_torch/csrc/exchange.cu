@@ -14,7 +14,8 @@
 // Design: rows are contiguous in a row-major tensor, so the TPU kernel's
 // granule windows, sorted schedules and staging rings have no counterpart.
 // Launch 1 gathers the pivot rows into the pivrows buffer (one block per
-// row, 16-byte vector copies when aligned).  Launch 2 scatters the displaced
+// row, 16-byte vector copies when aligned; `rows::` in common.cuh, shared
+// with kernel 9).  Launch 2 scatters the displaced
 // band rows to their out-of-band destinations.  Stream order puts every
 // read of launch 1 before any write of launch 2; launch 2 reads only band
 // rows, which it never writes, so a position that is both a source and a
@@ -23,24 +24,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ void copy_row(float* __restrict__ dst,
-                                         const float* __restrict__ src, int w) {
-  bool vec = ((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) & 15) == 0;
-  int nv = vec ? w / 4 : 0;
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-  float4* d4 = reinterpret_cast<float4*>(dst);
-  for (int i = threadIdx.x; i < nv; i += kThreads) d4[i] = s4[i];
-  for (int i = nv * 4 + threadIdx.x; i < w; i += kThreads) dst[i] = src[i];
-}
-
-__global__ void __launch_bounds__(kThreads)
-    gather_kernel(int w, const float* __restrict__ a, i64 lda,
-                  const int* __restrict__ rows, float* __restrict__ out) {
-  int j = blockIdx.x;
-  copy_row(out + (i64)j * w, a + (i64)rows[j] * lda, w);
-}
+using rows::kThreads;
 
 __global__ void __launch_bounds__(kThreads)
     scatter_band_kernel(int nr, int w, float* a, i64 lda, int k,
@@ -48,7 +32,7 @@ __global__ void __launch_bounds__(kThreads)
   int i = blockIdx.x;
   int d = dests[i];
   if (d >= k && d < k + nr) return;  // in-band: covered by the band write
-  copy_row(a + (i64)d * lda, a + (i64)(k + i) * lda, w);
+  rows::copy_row(a + (i64)d * lda, a + (i64)(k + i) * lda, w);
 }
 
 }  // namespace
@@ -58,7 +42,7 @@ MPF_API int mpf_rows_exchange(int nr, int w, float* a, i64 lda, int k,
                               void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (nr <= 0) return (int)cudaGetLastError();
-  gather_kernel<<<nr, kThreads, 0, st>>>(w, a, lda, glist, pivrows);
+  rows::gather_kernel<float><<<nr, kThreads, 0, st>>>(w, a, lda, glist, pivrows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   scatter_band_kernel<<<nr, kThreads, 0, st>>>(nr, w, a, lda, k, dests);

@@ -1,10 +1,12 @@
 """Build, load and bind the Hopper kernels; launch and call counters.
 
-The CUDA sources in ``mpf_tpu_torch/csrc`` are compiled by ``nvcc`` into one
-shared library with a plain C interface and loaded with ``ctypes``::
+The CUDA sources in ``mpf_tpu_torch/csrc`` are compiled by ``nvcc``, one
+process per source and all started together, then linked into one shared
+library with a plain C interface and loaded with ``ctypes``::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o <build>/libmpf_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
+         -c csrc/<name>.cu -o <build>/<name>.o          (each source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <build>/libmpf_kernels.so *.o
 
 The build happens at the first CUDA use (never at import: importing the
 package needs neither ``nvcc`` nor a card), into
@@ -33,9 +35,11 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
-#: The six kernels of the main path (one wrapper each).
+#: The kernels, one wrapper each: 1-6 carry the fused path, 5-9 the masked
+#: path (8b is kernel 8 without the inverses, for callers that need only
+#: the LU).
 KERNELS = (
     "strip_pivots",   # 1  A1 pivot search
     "rowblock",       # 2  A2 row-block assembly
@@ -43,6 +47,10 @@ KERNELS = (
     "rows_exchange",  # 4  bounded row exchange
     "tri_inv",        # 5  unit-lower inverse leaves
     "trailing_sub",   # 6  trailing GEMM
+    "hgetf2",         # 7  round-1 pre-pivoting panel search
+    "npv_inv",        # 8  no-pivot diagonal LU with L^-1 and U^-1
+    "npv",            # 8b no-pivot diagonal LU
+    "laswp",          # 9  bounded row exchange of the masked path
 )
 
 launches = {k: 0 for k in KERNELS}
@@ -58,8 +66,13 @@ _SIGS = {
     "mpf_rows_exchange": [I, I, P, L, I, P, P, P, P],
     "mpf_tri_inv": [I, I, P, L, P, P, P, L, P],
     "mpf_trailing_sub": [I, I, I, I, P, L, P, L, P, L, P],
+    "mpf_hgetf2_work_bytes": [I, I, I, I],
+    "mpf_hgetf2": [I, I, P, L, I, I, I, P, P, P, P, P, P, I, P],
+    "mpf_npv": [I, P, L, P, P, P, P, I, P],
+    "mpf_laswp": [I, I, P, L, P, P, P, I, P],
     "mpf_error_string": [I],
 }
+_RESTYPES = {"mpf_error_string": ctypes.c_char_p, "mpf_hgetf2_work_bytes": L}
 
 _lib = None
 _lock = threading.Lock()
@@ -106,15 +119,31 @@ def build() -> Path:
     if so.exists():
         return so
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libmpf_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *flags, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    nvcc = _nvcc()
+    tag = os.getpid()
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *flags, "-c", str(src), "-o", str(obj)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}\n{err}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    tmp = out_dir / f"libmpf_kernels.{tag}.so"
+    cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in jobs]]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
             f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, so)
+    for _, obj, _ in jobs:
+        obj.unlink()
     return so
 
 
@@ -127,7 +156,7 @@ def lib():
             for name, argtypes in _SIGS.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_char_p if name == "mpf_error_string" else I
+                fn.restype = _RESTYPES.get(name, I)
             _lib = handle
     return _lib
 

@@ -1,7 +1,12 @@
-"""Triangular inverses for the outer U12 (port of `mpf_tpu/ops/blas3.py`).
+"""Triangular inverses, TRSMs and the trailing update (port of
+`mpf_tpu/ops/blas3.py`).
 
 * :func:`unit_lower_inv` / :func:`upper_inv` — plain triangular inverses
   (the JAX package's ``triangular_solve`` forms).
+* :func:`trsm_u12` / :func:`trsm_l21` / :func:`trailing_update` — the
+  reference's cuBLAS TRSM and GEMM calls (`MPF.cu:215-239`), each as an
+  inverse GEMM (``use_inv=True``) or a ``solve_triangular``, fp32 products
+  in IEEE fp32.
 * :func:`unit_lower_inv_blocked` — the log-depth recursive inverse
   ``inv([[A, 0], [B, C]]) = [[inv(A), 0], [-inv(C) B inv(A), inv(C)]]``.
   Its leaves (<= 128 x 128) are kernel 5 (``csrc/tri_inv.cu``), all leaves
@@ -45,6 +50,40 @@ def upper_inv(u11: torch.Tensor) -> torch.Tensor:
     r = u11.shape[0]
     eye = torch.eye(r, dtype=u11.dtype, device=u11.device)
     return torch.linalg.solve_triangular(torch.triu(u11), eye, upper=True)
+
+
+def matmul_in(x: torch.Tensor, y: torch.Tensor, dtype) -> torch.Tensor:
+    """``x @ y`` with operands rounded to ``dtype`` and fp32 accumulation
+    (IEEE fp32 on the card, never TF32), returned in fp32."""
+    with ieee_fp32():
+        return x.to(dtype).float() @ y.to(dtype).float()
+
+
+def trsm_u12(lu11: torch.Tensor, a12: torch.Tensor, policy=None,
+             use_inv: bool = True) -> torch.Tensor:
+    """U12 = L11^{-1} A12 with L11 the unit-lower part of the packed block
+    (``policy`` is accepted for the JAX signature; the solve is fp32)."""
+    if use_inv:
+        return matmul_in(unit_lower_inv(lu11), a12, torch.float32).to(a12.dtype)
+    r = lu11.shape[0]
+    l = torch.tril(lu11, -1) + torch.eye(r, dtype=lu11.dtype, device=lu11.device)
+    return torch.linalg.solve_triangular(l, a12, upper=False, unitriangular=True)
+
+
+def trsm_l21(lu11: torch.Tensor, a21: torch.Tensor, policy=None,
+             use_inv: bool = True) -> torch.Tensor:
+    """L21 = A21 U11^{-1} with U11 the upper part of the packed block."""
+    if use_inv:
+        return matmul_in(a21, upper_inv(lu11), torch.float32).to(a21.dtype)
+    return torch.linalg.solve_triangular(torch.triu(lu11), a21, upper=True, left=False)
+
+
+def trailing_update(a22: torch.Tensor, l21: torch.Tensor, u12: torch.Tensor,
+                    policy) -> torch.Tensor:
+    """A22 - L21 @ U12 with the operands rounded to ``policy.gemm_in`` and
+    fp32 accumulation (returns a new tensor)."""
+    prod = matmul_in(l21, u12, policy.gemm_in)
+    return (a22.float() - prod).to(a22.dtype)
 
 
 def _leaves(n: int, base: int, o: int = 0) -> list[tuple[int, int]]:

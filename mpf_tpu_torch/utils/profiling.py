@@ -1,7 +1,7 @@
 """Where one factorization's time goes on the card (torch.profiler).
 
     python -m mpf_tpu_torch.utils.profiling --n 16384 --corpus hpl_ai \\
-        [--trace trace.json]
+        [--policy mpf_bf16] [--trace trace.json]
 
 Runs one warm-up factorization, then one under ``torch.profiler`` with CPU
 and CUDA activities, and prints one JSON line: wall time, summed device
@@ -20,15 +20,16 @@ import torch
 
 
 def profile_factorization(n: int, corpus: str = "hpl_ai", r: int = 128,
-                          trace: str | None = None) -> dict:
-    from mpf_tpu_torch import MPF_BF16, make_mpf
+                          trace: str | None = None, policy: str = "mpf_bf16") -> dict:
+    from mpf_tpu_torch import make_mpf
+    from mpf_tpu_torch.precision import POLICIES
     from mpf_tpu_torch.utils import matgen
 
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA device")
     gen = {"hpl_ai": matgen.hpl_ai_matrix, "uniform": matgen.random_dense}[corpus]
     a0 = torch.from_numpy(gen(n, seed=0)).cuda()
-    fac = make_mpf(n, r=r, policy=MPF_BF16)
+    fac = make_mpf(n, r=r, policy=POLICIES[policy])
     fac(a0.clone())
     work = a0.clone()
     torch.cuda.synchronize()
@@ -54,7 +55,7 @@ def profile_factorization(n: int, corpus: str = "hpl_ai", r: int = 128,
     busy_ms = sum(by_kernel.values())
     span_ms = (last - first) / 1e3 if by_kernel else 0.0
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15])
-    return {"n": n, "corpus": corpus, "wall_ms": wall * 1e3,
+    return {"n": n, "corpus": corpus, "policy": policy, "r": r, "wall_ms": wall * 1e3,
             "device_busy_ms": busy_ms, "device_span_ms": span_ms,
             "idle_share": 1.0 - busy_ms / span_ms if span_ms else None,
             "kernels_ms": {k[:80]: round(v, 3) for k, v in top.items()},
@@ -65,9 +66,12 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=16384)
     ap.add_argument("--corpus", choices=("hpl_ai", "uniform"), default="hpl_ai")
+    ap.add_argument("--policy", default="mpf_bf16",
+                    choices=("mpf_bf16", "mpf_ref", "pure_fp32", "mpf_fp16"))
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
-    print(json.dumps(profile_factorization(args.n, args.corpus, trace=args.trace)))
+    print(json.dumps(profile_factorization(args.n, args.corpus, trace=args.trace,
+                                           policy=args.policy)))
 
 
 if __name__ == "__main__":

@@ -115,7 +115,8 @@ def test_window_height_does_not_change_result(monkeypatch):
 
 def test_make_mpf_inplace_and_counters():
     """make_mpf factors a working-dtype input in place; on CPU tensors the
-    main path runs the six plain versions and launches no kernel."""
+    fused main path runs the six plain versions of its kernels (1-6), none
+    of the masked path's, and launches no kernel."""
     n = 256
     a = torch.from_numpy(matgen.hpl_ai_matrix(n, seed=6).astype(np.float32))
     ref = T.mpf_factorize(a, r=32, block=128)
@@ -124,7 +125,10 @@ def test_make_mpf_inplace_and_counters():
     res = T.make_mpf(n, r=32, block=128)(work)
     assert res.lu.data_ptr() == work.data_ptr()
     assert torch.equal(res.lu, ref.lu) and torch.equal(res.ipiv, ref.ipiv)
-    assert all(v > 0 for v in _lib.plain_calls.values()), _lib.plain_calls
+    fused = ("strip_pivots", "rowblock", "panel_update", "rows_exchange", "tri_inv",
+             "trailing_sub")
+    assert all(_lib.plain_calls[k] > 0 for k in fused), _lib.plain_calls
+    assert not any(_lib.plain_calls[k] for k in _lib.KERNELS if k not in fused)
     assert not any(_lib.launches.values())
     kept = T.make_mpf(n, r=32, block=128, donate=False)(a.clone().double())
     assert torch.equal(kept.lu, ref.lu)
@@ -138,13 +142,10 @@ def test_auto_block():
 
 
 @pytest.mark.parametrize("kwargs,what", [
-    (dict(pivot=False), "pivot=False"),
     (dict(policy=T.ALL_BF16), "all_bf16"),
-    (dict(policy=T.MPF_FP16), "mpf_fp16"),
     (dict(lookahead=True), "lookahead"),
     (dict(defer=2), "defer"),
     (dict(super_block=256), "super_block"),
-    (dict(r=12, block=48), "off the fused path"),
 ])
 def test_outside_the_slice_raises(kwargs, what):
     a = torch.eye(96)
@@ -153,10 +154,54 @@ def test_outside_the_slice_raises(kwargs, what):
 
 
 def test_3d_and_panel_kernel_raise():
+    """3D input still raises; a custom ``panel_kernel`` replaces kernel 7
+    in the masked path, which every block column then takes: with the
+    port's ``panel_pivots_perm`` it equals the JAX factorizer given the JAX
+    package's ``panel_pivots_perm`` (MPF_BF16, uniform, n = 96)."""
+    from mpf_tpu.ops.getf2 import panel_pivots_perm as jax_ppp
+    from mpf_tpu_torch.ops.getf2 import panel_pivots_perm
+
     with pytest.raises(NotImplementedError, match="3D"):
         T.mpf_factorize(torch.zeros(4, 2, 8))
-    with pytest.raises(NotImplementedError, match="panel_kernel"):
-        T.make_mpf(64, panel_kernel=lambda *a: None)
+    n = 96
+    a = matgen.random_dense(n, seed=12).astype(np.float32)
+    calls = []
+
+    def kern(panel, row_offset, prev_perm):
+        calls.append(panel.dtype)
+        return panel_pivots_perm(panel, row_offset=row_offset, prev_perm=prev_perm)
+
+    _lib.reset_counts()
+    t = result_to_numpy(T.make_mpf(n, r=16, block=32, panel_kernel=kern)(
+        torch.from_numpy(a.copy())))
+    assert calls == [torch.bfloat16] * 6
+    assert _lib.plain_calls["strip_pivots"] == 0 and _lib.plain_calls["hgetf2"] == 0
+    j = jax.tree.map(np.asarray, mpf_tpu.make_mpf(n, r=16, block=32, panel_kernel=jax_ppp,
+                                                   donate=False)(jnp.asarray(a)))
+    _assert_same(t, j, n)
+    assert check_factorization(a, t.lu, t.ipiv, nbe_tol=1e-3).ok
+
+
+def test_numpy_input_device():
+    """A numpy matrix is factored where ``device`` says (the default is
+    ``cuda:0``, which raises without a card instead of running on the
+    CPU); a CPU tensor stays on the CPU; make_mpf never overwrites a numpy
+    input."""
+    n = 64
+    a = matgen.hpl_ai_matrix(n, seed=13).astype(np.float32)
+    keep = a.copy()
+    res = T.mpf_factorize(a, r=16, device="cpu")
+    assert res.lu.device.type == "cpu"
+    ref = T.mpf_factorize(torch.from_numpy(a), r=16)
+    assert torch.equal(res.lu, ref.lu) and torch.equal(res.ipiv, ref.ipiv)
+    res2 = T.make_mpf(n, r=16, device="cpu")(a)
+    assert torch.equal(res2.lu, ref.lu)
+    np.testing.assert_array_equal(a, keep)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            T.mpf_factorize(a, r=16)
+        with pytest.raises(RuntimeError, match="cuda"):
+            T.make_mpf(n, r=16)(a)
 
 
 def _vs_jax_fused_interpret(monkeypatch, n, r, seed, agree):
