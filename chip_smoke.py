@@ -11,6 +11,16 @@ Phases, one line each:
   2b. kernels 7, 8, 8b and 9 of the masked path against their plain
      versions at the masked path's shapes (m = 16384, r = 128; the slab
      (16384, 1024) and the whole matrix for the row exchange);
+  2c. the bf16-storage instances (ALL_BF16) against their plain versions at
+     the fused path's shapes: kernels 1, 4 and 5 exact; kernel 2's LU and
+     kernel 12's L21 pass within one bf16 ulp, info exact; kernel 2's U12
+     and U^-1, kernel 12's update pass (fed the kernel's own L21) and
+     kernel 6 within one bf16 ulp plus the bound on two fp32 sums of the
+     same products in other orders (utils/oracle.py: sum_slack,
+     tri_inv_slack), which exceeds an ulp where the result cancels, on
+     several seeds, printing the largest share of that bound used; frozen
+     rows and the columns left of the panel exact, and a copy without the
+     update pass shown to fail;
   3. the fused path: mpf_factorize at n = 16384, MPF_BF16, r = 128 on the
      HPL-AI matrix and on the uniform (pivot-heavy) matrix: device fp64
      oracle (nbe <= 1e-3), perm consistent with ipiv, kernels 1-6 launched
@@ -19,7 +29,15 @@ Phases, one line each:
      (nbe <= 5e-4, kernels 5-9 launched, 1-4 and 8b not, no plain version,
      median of 3); MPF_BF16 at n = 4096, r = 48, block 1000 (uniform, nbe
      <= 1e-3); pivot=False under PURE_FP32 at n = 16384 (HPL-AI, ipiv the
-     identity, nbe <= 1e-5).
+     identity, nbe <= 1e-5);
+  5. ALL_BF16 (bf16 working storage) on the fused path at n = 16384 on both
+     matrices: device oracle (nbe <= 5e-2), the exact launch counts of
+     kernels 1, 2, 12, 4, 5, 6 and no other, median of 3 beside phase 3's;
+  5b. ALL_BF16 at n = 65536 (HPL-AI made on the card in bf16): one timed
+     factorization, launch counts, oracle, peak device memory;
+  5c. ALL_BF16 masked at n = 4096, r = 48, block 1000 (uniform): kernels 7
+     and 9 launched, kernel 8 not;
+  5d. ALL_BF16 pivot=False at n = 4096 (HPL-AI): ipiv the identity.
 Then the card's name and power limit, one JSON line of per-kernel results
 (times, errors against the plain version, launches in the main path's run,
 the least time the card could take and the time of a PyTorch call that
@@ -43,12 +61,32 @@ SLICE_N, SLICE_R, SLICE_BC = 16384, 128, 1024
 NBE_TOL = 1e-3       # the JAX package's MPF_BF16 oracle bound
 NBE_TOL_FP16 = 5e-4  # its MPF_FP16 bound (tests/test_mpf.py:70-72)
 NBE_TOL_FP32 = 1e-5  # its fp32-GEMM bound
+NBE_TOL_BF16 = 5e-2  # its ALL_BF16 bound (tests/test_panel_fused.py:441-443)
+BIG_N = 65536        # the size the JAX package runs ALL_BF16 at (bench.py)
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): bytes/s of HBM3, fp32
 # FLOP/s outside the tensor cores, bf16 FLOP/s on the tensor cores
 HBM_BPS, FP32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
 FUSED = ("strip_pivots", "rowblock", "panel_update", "rows_exchange", "tri_inv",
          "trailing_sub")
 MASKED = ("tri_inv", "trailing_sub", "hgetf2", "npv_inv", "laswp")
+# ALL_BF16: kernel 12 takes kernel 3's place; the masked path's bf16
+# diagonal is PyTorch ops, not kernel 8
+FUSED_BF16 = ("strip_pivots", "rowblock", "l21_trim", "upd_wide", "rows_exchange",
+              "tri_inv", "trailing_sub")
+MASKED_BF16 = ("tri_inv", "trailing_sub", "hgetf2", "laswp")
+BF = torch.bfloat16
+
+
+def fused_bf16_counts(n: int, r: int, bc: int) -> dict:
+    """Launches of one ALL_BF16 fused factorization of an n x n matrix,
+    stated from the algorithm: every panel runs kernels 1, 2 and the L21
+    pass, every panel but the last of its block column the update pass,
+    every block column one exchange, every block column but the last one
+    kernel-5 launch and one trailing GEMM."""
+    panels, cols = n // r, n // bc
+    return {"strip_pivots": panels, "rowblock": panels, "l21_trim": panels,
+            "upd_wide": panels - cols, "rows_exchange": cols, "tri_inv": cols - 1,
+            "trailing_sub": cols - 1}
 
 
 def bound(nbytes: float, fp32_ops: float = 0.0, bf16_ops: float = 0.0):
@@ -113,19 +151,21 @@ def main() -> int:
     from mpf_tpu_torch.ops.blas3 import _leaves, tri_inv_leaves, tri_inv_leaves_plain
     from mpf_tpu_torch.ops.exchange import rows_exchange, rows_exchange_plain
     from mpf_tpu_torch.ops.panel_fused import (
-        panel_apply_update_trim, panel_apply_update_trim_plain,
+        l21_trim, l21_trim_plain, panel_apply_update_trim, panel_apply_update_trim_plain,
         rowblock_assemble, rowblock_assemble_plain,
-        trailing_gemm_sub, trailing_gemm_sub_plain)
+        trailing_gemm_sub, trailing_gemm_sub_plain, upd_wide, upd_wide_plain)
     from mpf_tpu_torch.ops.panel_pallas import (
         getf2_npv_block, getf2_npv_inv_block, getf2_npv_inv_plain, hgetf2_panel_plain,
         hgetf2_panel_swaps, laswp_apply, laswp_plain)
     from mpf_tpu_torch.ops.panel_strip import strip_panel_pivots, strip_panel_pivots_plain
     from mpf_tpu_torch.precision import cast_to_panel
     from mpf_tpu_torch.utils import matgen
-    from mpf_tpu_torch.utils.oracle import check_factorization_device, ipiv_to_perm
+    from mpf_tpu_torch.utils.oracle import (
+        check_factorization_device, ipiv_to_perm, sum_slack, tri_inv_slack, within_bf16_ulp)
     from mpf_tpu_torch.utils.timing import cuda_time, tflops
 
     dev = torch.device("cuda", 0)
+    wall0 = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = smi_line()
@@ -151,6 +191,8 @@ def main() -> int:
         "npv_inv": "mpf_tpu/ops/panel_pallas.py:219",
         "npv": "mpf_tpu/ops/panel_pallas.py:388",
         "laswp": "mpf_tpu/ops/panel_pallas.py:283",
+        "l21_trim": "mpf_tpu/ops/panel_fused.py:806",
+        "upd_wide": "mpf_tpu/ops/panel_fused.py:870",
     }
     source = {
         "strip_pivots": "mpf_tpu_torch/csrc/strip_pivots.cu",
@@ -163,6 +205,8 @@ def main() -> int:
         "npv_inv": "mpf_tpu_torch/csrc/npv.cu",
         "npv": "mpf_tpu_torch/csrc/npv.cu",
         "laswp": "mpf_tpu_torch/csrc/laswp.cu",
+        "l21_trim": "mpf_tpu_torch/csrc/l21_trim.cu",
+        "upd_wide": "mpf_tpu_torch/csrc/l21_trim.cu",
     }
 
     def record(name, abs_err, rel_err, ms, plain_ms, bnd, library_ms, **extra):
@@ -173,6 +217,13 @@ def main() -> int:
                       "bound_ms": float(bnd[0]), "bound_by": bnd[1],
                       "library_ms": None if library_ms is None else float(library_ms),
                       **extra}
+
+    def record_bf16(name, abs_err, ms, plain_ms, bnd, library_ms, **extra):
+        """The bf16-storage (ALL_BF16) instance of a kernel recorded above."""
+        kern[name]["all_bf16"] = {
+            "max_abs_err": float(abs_err), "ms": float(ms), "plain_ms": float(plain_ms),
+            "bound_ms": float(bnd[0]), "bound_by": bnd[1],
+            "library_ms": None if library_ms is None else float(library_ms), **extra}
 
     def library(fn, reps: int = 5):
         """ms of a PyTorch call that computes a kernel's function, or None
@@ -491,14 +542,184 @@ def main() -> int:
         else:
             ms9m = event_ms(lambda: laswp_apply(x9, cand, src9), 3)
             b9m = bound(2 * nswap * n * 4)[0]
-    del x9, y9, big
+    del x9, y9, sl_x, sl_y, big
     record("laswp", *err9, ms9, pms9, b9, lib9, matrix_ms=ms9m, matrix_bound_ms=b9m)
+    # ---------------- phase 2c: bf16-storage instances vs plain -------------
+    # ALL_BF16 keeps the matrix in bf16: the same slab and matrix rounded
+    hpl_b, slab0_b, uni_b = hpl.to(BF), slab0.to(BF), uni.to(BF)
+    # #1 on bf16 slabs: exact against the plain version and against the
+    # kernel on an fp32 slab holding the same (bf16) values
+    pairs1b = []
+    for q16 in (True, False):
+        for corpus, sl, jj0 in (("hpl", slab0_b, 0), ("hpl", slab0_b, 384), ("uniform", uni_b, 0)):
+            got = strip_panel_pivots(sl, jj0, pos0, BF, jj0, r, quant16=q16)
+            ref = strip_panel_pivots_plain(sl, jj0, pos0, BF, jj0, r, quant16=q16)
+            f32 = strip_panel_pivots(sl.float(), jj0, pos0, BF, jj0, r, quant16=q16)
+            pairs1b += zip(got, ref)
+            phase(f"k1_bf16_slab_{corpus}_{'quant16' if q16 else 'exact'}_jj0={jj0}",
+                  piv_eq(got, ref) and piv_eq(got, f32))
+    ms = event_ms(lambda: strip_panel_pivots(slab0_b, 0, pos0, BF, 0, r))
+    pms = event_ms(lambda: strip_panel_pivots_plain(slab0_b, 0, pos0, BF, 0, r), 2)
+    record_bf16("strip_pivots", errs(pairs1b)[0], ms, pms,
+                bound(2 * n * r + 8 * n + 8 * r, panel_ops(n, 0, r)), None)
+
+    # #2 and #12 on the bf16 slabs.  #12's passes are each held against
+    # their plain version on the same inputs: the update pass is fed the
+    # kernel's own L21, since a one-ulp L21 difference moves the update by
+    # more than one ulp of a small result.  #2's gathered columns and
+    # diagonal LU (the same operations in the same order) are held to one
+    # ulp; its U12 and U^-1 come out of fp32 sums that the kernel takes in
+    # a chain and the plain version through cuBLAS, so they get the
+    # sum-order slack, from L^-1, U11 and U^-1 in fp32 (kernel 8's plain
+    # version on the gathered block: the same operations).  Four more
+    # uniform slabs, made on the card from seeds 1-4, measure how much of
+    # the slack the kernels use
+    abs2b = abs12a = abs12b = used2 = used12 = 0.0
+    cases = [("uniform", uni_b, 0), ("uniform", uni_b, 384), ("hpl", slab0_b, 0)]
+    for seed in range(1, 5):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        slab_s = (torch.rand((n, bc), generator=gen, device=dev) * 9.9).to(BF)
+        cases += [(f"uniform_seed{seed}", slab_s, 0), (f"uniform_seed{seed}", slab_s, 384)]
+    del slab_s
+    for corpus, slab, jj0 in cases:
+        tag = f"{corpus}_jj0={jj0}"
+        _, pos1, glist1 = strip_panel_pivots(slab, jj0, pos0, BF, jj0, r)
+        rb_k, ui_k, info_k = rowblock_assemble(slab, glist1, jj0)
+        rb_p, ui_p, info_p = rowblock_assemble_plain(slab, glist1, jj0)
+        left_exact = torch.equal(rb_k[:, :jj0], rb_p[:, :jj0])
+        c1 = jj0 + r
+        staged = slab[glist1.long()].float()
+        lu_f, linv_f, uinv_f, _ = getf2_npv_inv_plain(staged[:, jj0:c1])
+        rep_lu = within_bf16_ulp(rb_k[:, :c1], rb_p[:, :c1])
+        rep_u12 = within_bf16_ulp(rb_k[:, c1:], rb_p[:, c1:],
+                                  sum_slack(staged.new_zeros(()), linv_f.to(BF), staged[:, c1:]))
+        rep_ui = within_bf16_ulp(ui_k, ui_p, tri_inv_slack(uinv_f, torch.triu(lu_f)))
+        ok2 = rep_lu.ok and rep_u12.ok and rep_ui.ok
+        used2 = max(used2, rep_u12.slack_used, rep_ui.slack_used)
+        abs2b = max(abs2b, absd(rb_k, rb_p), absd(ui_k, ui_p))
+        phase(f"k2_bf16_rowblock_{tag}", ok2 and left_exact and rb_k.dtype == BF
+              and int(info_k) == int(info_p) == 0, lu_within_one_bf16_ulp=rep_lu.ok,
+              u12_uinv_within_ulp_and_sum_order=rep_u12.ok and rep_ui.ok,
+              beyond_one_ulp=rep_lu.beyond + rep_u12.beyond + rep_ui.beyond,
+              slack_used=f"{max(rep_u12.slack_used, rep_ui.slack_used):.4f}",
+              left_of_panel_exact=left_exact, info=int(info_k))
+        del staged, lu_f, linv_f, uinv_f
+        below = pos1 >= jj0 + r
+        s_k, s_p = slab.clone(), slab.clone()
+        l_k = l21_trim(s_k, pos1, ui_p, jj0, jj0)
+        l_p = l21_trim_plain(s_p, pos1, ui_p, jj0, jj0)
+        ok_l21 = within_bf16_ulp(l_k, l_p).ok and within_bf16_ulp(s_k, s_p).ok
+        frozen_ok = (torch.equal(s_k[~below], slab[~below]) and not l_k[~below].any()
+                     and torch.equal(s_k[:, :jj0], slab[:, :jj0]))
+        abs12a = max(abs12a, absd(l_k, l_p))
+        after_l21 = s_k.clone()
+        s_u = s_k.clone()
+        upd_wide(s_k, l_k, rb_p, jj0)
+        upd_wide_plain(s_u, l_k, rb_p, jj0)
+        c0 = jj0 + r
+        slack = sum_slack(after_l21[:, c0:], l_k, rb_p[:, c0:])
+        rep_upd = within_bf16_ulp(s_k[:, c0:], s_u[:, c0:], slack)
+        used12 = max(used12, rep_upd.slack_used)
+        frozen_ok = (frozen_ok and torch.equal(s_k[~below], slab[~below])
+                     and torch.equal(s_k[:, :c0], after_l21[:, :c0]))
+        # the same check on a copy whose update pass was left out must fail
+        no_update_fails = not within_bf16_ulp(after_l21[:, c0:], s_u[:, c0:], slack).ok
+        abs12b = max(abs12b, absd(s_k, s_u))
+        phase(f"k12_{tag}", ok_l21 and rep_upd.ok and frozen_ok and no_update_fails,
+              l21_within_one_bf16_ulp=ok_l21, update_within_ulp_and_sum_order=rep_upd.ok,
+              update_beyond_one_ulp=rep_upd.beyond, slack_used=f"{rep_upd.slack_used:.4f}",
+              frozen_rows_and_left_exact=frozen_ok,
+              copy_without_update_fails=no_update_fails)
+        del slack
+        if corpus == "uniform" and jj0 == 0:
+            ms2 = event_ms(lambda: rowblock_assemble(slab, glist1, 0))
+            pms2 = event_ms(lambda: rowblock_assemble_plain(slab, glist1, 0), 2)
+            s_t = slab.clone()
+            ms12a = event_ms(lambda: l21_trim(s_t, pos1, ui_p, 0, 0))
+            pms12a = event_ms(lambda: l21_trim_plain(s_t, pos1, ui_p, 0, 0))
+            ms12b = event_ms(lambda: upd_wide(s_t, l_k, rb_p, 0))
+            pms12b = event_ms(lambda: upd_wide_plain(s_t, l_k, rb_p, 0))
+            c12, u12_12 = s_t[:, r:], rb_p[:, r:]
+            lib12b = library(lambda: torch.addmm(c12, l_k, u12_12, alpha=-1))
+            del s_t
+        del s_k, s_p, s_u, after_l21
+    del cases, slab
+    # k2 bf16 at jj0 = 0: r pivot rows read, row block and U11^-1 written in
+    # bf16; the diagonal in fp32, U12 on bf16 operands
+    record_bf16("rowblock", abs2b, ms2, pms2,
+                bound(2 * (2 * r * bc + r * r), 4 * r ** 3 / 3, 2 * r * r * (bc - r)), None)
+    # k12 at jj0 = 0, m = n: the L21 pass reads the panel and writes it and
+    # the side buffer (bf16), 2 m r^2 bf16-operand operations; the update
+    # pass reads and writes the m x (bc - r) columns, reads L21 and U12
+    record("l21_trim", abs12a, abs12a / max(float(uni_b.float().abs().max()), 1.0), ms12a,
+           pms12a, bound(6 * n * r + 4 * n + 2 * r * r, 0, 2 * n * r * r), None)
+    record("upd_wide", abs12b, abs12b / float(uni_b.float().abs().max()), ms12b, pms12b,
+           bound(4 * n * (bc - r) + 2 * n * r + 2 * r * (bc - r), 0,
+                 2 * n * r * (bc - r)), lib12b)
+
+    # #4 on the bf16 matrix: exact
+    a_k, a_p = hpl_b.clone(), hpl_b.clone()
+    pr_k = rows_exchange(a_k, k, src, src)
+    pr_p = rows_exchange_plain(a_p, k, src, src)
+    phase("k4_bf16_rows_exchange", torch.equal(pr_k, pr_p) and torch.equal(a_k, a_p))
+    err4b = errs([(pr_k, pr_p), (a_k, a_p)])[0]
+    ms = event_ms(lambda: rows_exchange(a_k, k, src, src))
+    pms = event_ms(lambda: rows_exchange_plain(a_p, k, src, src))
+    lib4b = library(lambda: a_p.index_copy_(0, src_l, a_p.index_select(0, band_rows)))
+    record_bf16("rows_exchange", err4b, ms, pms, bound(2 * n * 4 * bc), lib4b)
+    del a_k, a_p
+
+    # #5 on bf16 leaves: exact
+    l11_b = l11.to(BF)
+    t_k, t_p = tri_inv_leaves(l11_b, leaves), tri_inv_leaves_plain(l11_b, leaves)
+    pairs5b = [(t_k[o:o + s, o:o + s], t_p[o:o + s, o:o + s]) for o, s in leaves]
+    phase("k5_bf16_tri_inv", all(torch.equal(x, y) for x, y in pairs5b), leaves=len(leaves))
+    ms = event_ms(lambda: tri_inv_leaves(l11_b, leaves))
+    pms = event_ms(lambda: tri_inv_leaves_plain(l11_b, leaves), 2)
+    stack_b = stack.to(BF)
+    lib5b = library(lambda: torch.linalg.solve_triangular(stack_b, eye.to(BF), upper=False,
+                                                          unitriangular=True))
+    record_bf16("tri_inv", errs(pairs5b)[0], ms, pms,
+                bound(sum(4 * s * s for _, s in leaves), 0,
+                      sum(s ** 3 / 3 for _, s in leaves)), lib5b)
+
+    # #6 bf16-C instance at e = 1024: within one bf16 ulp of the plain
+    # version plus sum_slack (operands from three seeds), everything outside
+    # the trailing block untouched
+    used6 = 0.0
+    for seed in range(3):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        l21 = (torch.rand((n - e, bc), generator=gen, device=dev) - 0.5).to(BF)
+        u12 = (torch.rand((bc, n - e), generator=gen, device=dev) - 0.5).to(BF)
+        a_k, a_p = hpl_b.clone(), hpl_b.clone()
+        trailing_gemm_sub(a_k, l21, u12, e)
+        trailing_gemm_sub_plain(a_p, l21, u12, e)
+        rep6 = within_bf16_ulp(a_k[e:, e:], a_p[e:, e:], sum_slack(hpl_b[e:, e:], l21, u12))
+        untouched = torch.equal(a_k[:e], hpl_b[:e]) and torch.equal(a_k[:, :e], hpl_b[:, :e])
+        phase(f"k6_bf16_trailing_sub_seed={seed}", rep6.ok and untouched,
+              within_ulp_and_sum_order=rep6.ok, beyond_one_ulp=rep6.beyond,
+              slack_used=f"{rep6.slack_used:.4f}", outside_untouched=untouched)
+        used6 = max(used6, rep6.slack_used)
+        torch.cuda.empty_cache()
+    print(f"[INFO] sum_slack_used_at_most k2_bf16={used2:.4f} k12_update={used12:.4f} "
+          f"k6_bf16={used6:.4f}", flush=True)
+    err6b = absd(a_k, a_p)
+    ms = event_ms(lambda: trailing_gemm_sub(a_k, l21, u12, e))
+    pms = event_ms(lambda: trailing_gemm_sub_plain(a_p, l21, u12, e))
+    c6b = a_p[e:, e:]
+    lib6b = library(lambda: torch.addmm(c6b, l21, u12, alpha=-1))
+    record_bf16("trailing_sub", err6b, ms, pms,
+                bound(4 * mt * mt + 2 * 2 * mt * bc, 0, 2 * mt * mt * bc), lib6b)
+    del a_k, a_p, l21, u12, c6b, hpl_b, slab0_b, uni_b
+    torch.cuda.empty_cache()
+
     del hpl, slab0, uni, dyp, p16
     torch.cuda.empty_cache()
 
     # ---------------- phase 3: the main path --------------------------------
     fac = T.make_mpf(n, r=r, policy=T.MPF_BF16)
     main_counts = None
+    bf16_policy_ms = {}
     for corpus, gen in (("hpl_ai", matgen.hpl_ai_matrix), ("uniform", matgen.random_dense)):
         a0 = torch.from_numpy(gen(n, seed=0)).to(dev)
         work = a0.clone()
@@ -519,8 +740,9 @@ def main() -> int:
         is_perm = torch.equal(torch.sort(perm).values, torch.arange(n, device=dev))
         consistent = torch.equal(ipiv_to_perm(res.ipiv).to(dev), perm)
         finite = bool(torch.isfinite(res.lu).all())
-        med, runs, _ = cuda_time(fac, a0, warmup=1, iters=3,
-                                 setup=lambda x: (x.clone(),))
+        med, runs = cuda_time(fac, a0, warmup=1, iters=3,
+                              setup=lambda x: (x.clone(),))[:2]
+        bf16_policy_ms[corpus] = med * 1e3
         phase(f"mpf_factorize_{corpus}",
               rep.ok and is_perm and consistent and finite and counters_ok
               and int(res.info) == 0,
@@ -554,13 +776,16 @@ def main() -> int:
         first_s = time.perf_counter() - t1
         launched = dict(_lib.launches)
         plain = dict(_lib.plain_calls)
-        want = set(MASKED if pivot else ("tri_inv", "trailing_sub", "npv_inv"))
+        bf16 = policy.working == BF
+        masked = MASKED_BF16 if bf16 else MASKED
+        want = set(masked if pivot else ("tri_inv", "trailing_sub")
+                   + (() if bf16 else ("npv_inv",)))
         if fused_panels:
-            want |= set(FUSED)
+            want |= set(FUSED_BF16 if bf16 else FUSED)
         counters_ok = (all(launched[k] > 0 for k in want) and not any(plain.values())
                        and not any(launched[k] for k in _lib.KERNELS if k not in want)
                        and launched["strip_pivots"] == fused_panels
-                       and launched["npv_inv"] == masked_panels
+                       and launched["npv_inv"] == (0 if bf16 else masked_panels)
                        and launched["hgetf2"] == (masked_panels if pivot else 0))
         rep = check_factorization_device(a0, res.lu, res.ipiv, nbe_tol=tol)
         perm = res.perm.long()
@@ -570,8 +795,8 @@ def main() -> int:
         finite = bool(torch.isfinite(res.lu).all())
         fields = {}
         if timed:
-            med, runs, _ = cuda_time(fac4, a0, warmup=1, iters=3,
-                                     setup=lambda x: (x.clone(),))
+            med, runs = cuda_time(fac4, a0, warmup=1, iters=3,
+                                  setup=lambda x: (x.clone(),))[:2]
             fields = {"median_ms": f"{med * 1e3:.2f}",
                       "runs_ms": "/".join(f"{t * 1e3:.2f}" for t in runs),
                       "tflops": f"{tflops(n4, med):.2f}"}
@@ -604,14 +829,105 @@ def main() -> int:
     masked_run("pivot_false_pure_fp32", n, r, T.PURE_FP32, "hpl_ai", matgen.hpl_ai_matrix,
                False, None, NBE_TOL_FP32, True, fused_panels=0, masked_panels=n // r)
 
+    # ---------------- phase 5: ALL_BF16 on the fused path ------------------
+    fac5 = T.make_mpf(n, r=r, policy=T.ALL_BF16)
+    want5 = fused_bf16_counts(n, r, bc)
+    bf16_counts = None
+    for corpus, gen in (("hpl_ai", matgen.hpl_ai_matrix), ("uniform", matgen.random_dense)):
+        a0 = torch.from_numpy(gen(n, seed=0)).to(dev)
+        a0b = a0.to(BF)                    # the working copy's values
+        work = a0b.clone()
+        torch.cuda.synchronize()
+        _lib.reset_counts()
+        t1 = time.perf_counter()
+        res = fac5(work)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t1
+        launched = dict(_lib.launches)
+        plain = dict(_lib.plain_calls)
+        bf16_counts = bf16_counts or launched
+        counters_ok = (not any(plain.values())
+                       and all(launched[k] == want5.get(k, 0) for k in _lib.KERNELS))
+        rep5 = check_factorization_device(a0, res.lu, res.ipiv, nbe_tol=NBE_TOL_BF16)
+        perm = res.perm.long()
+        is_perm = torch.equal(torch.sort(perm).values, torch.arange(n, device=dev))
+        consistent = torch.equal(ipiv_to_perm(res.ipiv).to(dev), perm)
+        finite = bool(torch.isfinite(res.lu).all())
+        in_place = res.lu.data_ptr() == work.data_ptr() and res.lu.dtype == BF
+        med, runs = cuda_time(fac5, a0b, warmup=1, iters=3, setup=lambda x: (x.clone(),))[:2]
+        phase(f"all_bf16_{corpus}",
+              rep5.ok and is_perm and consistent and finite and counters_ok and in_place
+              and int(res.info) == 0,
+              n=n, policy="all_bf16", r=r, nbe=f"{rep5.normwise_backward_err:.3e}",
+              max_abs=f"{rep5.max_abs_err:.3e}", perm_ok=is_perm and consistent,
+              info=int(res.info), launches=json.dumps(launched, separators=(",", ":")),
+              plain_calls=sum(plain.values()), first_run_s=f"{first_s:.3f}",
+              median_ms=f"{med * 1e3:.2f}", runs_ms="/".join(f"{t * 1e3:.2f}" for t in runs),
+              mpf_bf16_median_ms=f"{bf16_policy_ms[corpus]:.2f}",
+              tflops=f"{tflops(n, med):.2f}", card=f"'{smi}'")
+        del a0, a0b, work, res
+        torch.cuda.empty_cache()
+
+    # ---------------- phase 5b: ALL_BF16 at n = 65536 ----------------------
+    nb = BIG_N
+    t1 = time.perf_counter()
+    big_a = matgen.hpl_ai_matrix_device(nb, seed=0, dtype=BF, device=dev)
+    work = big_a.clone()
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t1
+    fac5b = T.make_mpf(nb, r=r, policy=T.ALL_BF16)
+    resident = torch.cuda.memory_allocated()   # the matrix, its copy, earlier phases'
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fac5b(work)
+    end.record()
+    end.synchronize()
+    big_ms = start.elapsed_time(end)
+    fac_peak = torch.cuda.max_memory_allocated()
+    launched = dict(_lib.launches)
+    want5b = fused_bf16_counts(nb, r, bc)
+    counters_ok = (not any(_lib.plain_calls.values())
+                   and all(launched[k] == want5b.get(k, 0) for k in _lib.KERNELS))
+    lu, ipiv, info = res.lu, res.ipiv, int(res.info)
+    finite = bool(torch.isfinite(lu).all())
+    del res
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rep5b = check_factorization_device(big_a, lu, ipiv, nbe_tol=NBE_TOL_BF16, chunk=2048)
+    oracle_peak = torch.cuda.max_memory_allocated()
+    phase("all_bf16_n65536_hpl_ai", rep5b.ok and counters_ok and finite and info == 0,
+          n=nb, policy="all_bf16", r=r, nbe=f"{rep5b.normwise_backward_err:.3e}",
+          info=info, launches=json.dumps(launched, separators=(",", ":")),
+          ms=f"{big_ms:.2f}", tflops=f"{tflops(nb, big_ms / 1e3):.2f}",
+          generate_s=f"{gen_s:.2f}", resident_gib_before=f"{resident / 2**30:.2f}",
+          peak_gib_factorization=f"{fac_peak / 2**30:.2f}",
+          peak_gib_oracle=f"{oracle_peak / 2**30:.2f}", card=f"'{smi}'")
+    del big_a, work, lu, ipiv
+    torch.cuda.empty_cache()
+
+    # ---------------- phases 5c, 5d: ALL_BF16 off the fused path -----------
+    # block columns 0..3000 are 1000 wide: 4 x 21 masked panels, and the
+    # 96-wide last one 2 fused panels, as phase 4 routes MPF_BF16
+    masked_run("all_bf16_r48_block1000", 4096, 48, T.ALL_BF16, "uniform",
+               matgen.random_dense, True, 1000, NBE_TOL_BF16, False,
+               fused_panels=2, masked_panels=84)
+    masked_run("all_bf16_pivot_false", 4096, r, T.ALL_BF16, "hpl_ai", matgen.hpl_ai_matrix,
+               False, None, NBE_TOL_BF16, False, fused_panels=0, masked_panels=4096 // r)
+
     for name in _lib.KERNELS:
-        counts = main_counts if name in FUSED else masked_counts
+        counts = (main_counts if name in FUSED else masked_counts if name in MASKED
+                  else bf16_counts)
         kern[name]["launches"] = int(counts[name])
         if name in FUSED and name in MASKED:
             kern[name]["launches_masked"] = int(masked_counts[name])
-        kern[name]["path"] = ("fused+masked" if name in FUSED and name in MASKED
-                              else "fused" if name in FUSED
-                              else "masked" if name in MASKED else "none (distributed path)")
+        if name in FUSED_BF16 and name in FUSED + MASKED:
+            kern[name]["launches_all_bf16"] = int(bf16_counts[name])
+        paths = [p for p, ks in (("fused", FUSED), ("masked", MASKED), ("all_bf16", FUSED_BF16))
+                 if name in ks]
+        kern[name]["path"] = "+".join(paths) if paths else "none (distributed path)"
+    print(f"[INFO] wall_s={time.perf_counter() - wall0:.1f}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": [kern[k] for k in _lib.KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,8 +7,12 @@
 //   a[dests[i], :] = a[k + i, :]   for every dests[i] outside [k, k + nr)
 // The caller then writes pivrows over the band a[k:k+nr, :].
 //
+// Rows are fp32, or bf16 under ALL_BF16: copied as they are, 2-byte
+// elements, where the TPU kernel staged bf16 rows through fp32 (an exact
+// round trip, so the function is the same).
+//
 // What bounds it on the H100: pure row movement, 2 * (nr + moved rows) * w *
-// 4 bytes of device-memory traffic — bandwidth and, for few moved rows,
+// (4 or 2) bytes of device-memory traffic — bandwidth and, for few moved rows,
 // launch latency.
 //
 // Design: rows are contiguous in a row-major tensor, so the TPU kernel's
@@ -26,8 +30,9 @@ namespace {
 
 using rows::kThreads;
 
+template <typename E>
 __global__ void __launch_bounds__(kThreads)
-    scatter_band_kernel(int nr, int w, float* a, i64 lda, int k,
+    scatter_band_kernel(int nr, int w, E* a, i64 lda, int k,
                         const int* __restrict__ dests) {
   int i = blockIdx.x;
   int d = dests[i];
@@ -35,16 +40,28 @@ __global__ void __launch_bounds__(kThreads)
   rows::copy_row(a + (i64)d * lda, a + (i64)(k + i) * lda, w);
 }
 
-}  // namespace
-
-MPF_API int mpf_rows_exchange(int nr, int w, float* a, i64 lda, int k,
-                              const int* glist, const int* dests, float* pivrows,
-                              void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (nr <= 0) return (int)cudaGetLastError();
-  rows::gather_kernel<float><<<nr, kThreads, 0, st>>>(w, a, lda, glist, pivrows);
+template <typename E>
+int launch(int nr, int w, E* a, i64 lda, int k, const int* glist, const int* dests,
+           E* pivrows, cudaStream_t st) {
+  rows::gather_kernel<E><<<nr, kThreads, 0, st>>>(w, a, lda, glist, pivrows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  scatter_band_kernel<<<nr, kThreads, 0, st>>>(nr, w, a, lda, k, dests);
+  scatter_band_kernel<E><<<nr, kThreads, 0, st>>>(nr, w, a, lda, k, dests);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// elem: bytes per element, 4 (fp32) or 2 (bf16); rows are copied raw.
+MPF_API int mpf_rows_exchange(int nr, int w, void* a, i64 lda, int k, const int* glist,
+                              const int* dests, void* pivrows, int elem, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (nr <= 0) return (int)cudaGetLastError();
+  if (elem == 4)
+    return launch<uint32_t>(nr, w, (uint32_t*)a, lda, k, glist, dests, (uint32_t*)pivrows,
+                            st);
+  if (elem == 2)
+    return launch<uint16_t>(nr, w, (uint16_t*)a, lda, k, glist, dests, (uint16_t*)pivrows,
+                            st);
+  return (int)cudaErrorInvalidValue;
 }

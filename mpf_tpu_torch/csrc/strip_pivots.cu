@@ -5,7 +5,10 @@
 // r-wide panel at column jj0 of the (m, bc) slab it chooses r partial pivots
 // without moving rows: pos[row] is the row's current position, rows with
 // pos < off are frozen, and 2^31-1 marks a dead row that never takes part.
-// Per 8-column strip, in fp32 over panel-dtype storage:
+// The slab is fp32 (converted to the panel dtype as it is loaded) or, under
+// ALL_BF16, bf16 with a bf16 panel taken as stored: the same values give the
+// same pivots either way.  Per 8-column strip, in fp32 over panel-dtype
+// storage:
 //   * search column j: largest |value| among rows with pos >= off + j — the
 //     quant16 key (top 15 bits of |value|, bf16 panels) or the full |value|
 //     (exact search); ties go to the lowest position;
@@ -76,9 +79,9 @@ __device__ u64 block_max(u64 v, u64* red) {
   return v;
 }
 
-template <typename T>
+template <typename S, typename T>
 __global__ void __launch_bounds__(kThreads)
-    strip_kernel(int m, int r, const float* __restrict__ slab, i64 ld, int jj0,
+    strip_kernel(int m, int r, const S* __restrict__ slab, i64 ld, int jj0,
                  int off, int* __restrict__ pos_io, int* __restrict__ piv,
                  int* __restrict__ glist, int quant16, Rec* rec,
                  float* pinfo, int rpb) {
@@ -106,7 +109,7 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int e = tid; e < nrows * r; e += kThreads) {
     int l = e / r, c = e % r;
-    Ts[e] = from_f32<T>(slab[(i64)(r0 + l) * ld + jj0 + c]);
+    Ts[e] = from_f32<T>(to_f32(slab[(i64)(r0 + l) * ld + jj0 + c]));
   }
   for (int l = tid; l < nrows; l += kThreads) poss[l] = pos_io[r0 + l];
   __syncthreads();
@@ -262,8 +265,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int l = tid; l < nrows; l += kThreads) pos_io[r0 + l] = poss[l];
 }
 
-template <typename T>
-int launch(int m, int r, const float* slab, i64 ld, int jj0, int off, int* pos,
+template <typename S, typename T>
+int launch(int m, int r, const S* slab, i64 ld, int jj0, int off, int* pos,
            int* piv, int* glist, int quant16, void* rec, float* pinfo, int gmax,
            cudaStream_t stream) {
   int dev = 0, nsm = 0, optin = 0;
@@ -277,16 +280,16 @@ int launch(int m, int r, const float* slab, i64 ld, int jj0, int off, int* pos,
   smem = (smem + 15) & ~(size_t)15;
   if ((int)smem > optin) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      strip_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      strip_kernel<S, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int occ = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, strip_kernel<T>, kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, strip_kernel<S, T>, kThreads, smem);
   if (err != cudaSuccess) return (int)err;
   if (occ * nsm < G) return (int)cudaErrorCooperativeLaunchTooLarge;
   Rec* recp = (Rec*)rec;
   void* args[] = {&m, &r, &slab, &ld, &jj0, &off, &pos, &piv, &glist, &quant16,
                   &recp, &pinfo, &rpb};
-  err = cudaLaunchCooperativeKernel((void*)strip_kernel<T>, dim3(G), dim3(kThreads), args,
+  err = cudaLaunchCooperativeKernel((void*)strip_kernel<S, T>, dim3(G), dim3(kThreads), args,
                                     smem, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -298,15 +301,22 @@ int launch(int m, int r, const float* slab, i64 ld, int jj0, int off, int* pos,
 // r * gmax records).
 MPF_API int mpf_strip_record_bytes() { return (int)sizeof(Rec); }
 
-MPF_API int mpf_strip_pivots(int m, int r, const float* slab, i64 ld, int jj0, int off,
-                             int* pos, int* piv, int* glist, int panel_bf16,
-                             int quant16, void* rec, float* pinfo, int gmax,
-                             void* stream) {
+// slab_bf16: the slab is stored in bf16 (ALL_BF16; the panel is then bf16
+// too and is taken as stored), else fp32 (converted to the panel dtype).
+MPF_API int mpf_strip_pivots(int m, int r, const void* slab, i64 ld, int jj0, int off,
+                             int* pos, int* piv, int* glist, int slab_bf16,
+                             int panel_bf16, int quant16, void* rec, float* pinfo,
+                             int gmax, void* stream) {
   if (r % kW != 0 || r > kMaxR || m <= 0) return (int)cudaErrorInvalidValue;
+  if (slab_bf16 && !panel_bf16) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  typedef __nv_bfloat16 bf;
+  if (slab_bf16)
+    return launch<bf, bf>(m, r, (const bf*)slab, ld, jj0, off, pos, piv, glist, quant16,
+                          rec, pinfo, gmax, st);
   if (panel_bf16)
-    return launch<__nv_bfloat16>(m, r, slab, ld, jj0, off, pos, piv, glist, quant16, rec,
-                                 pinfo, gmax, st);
-  return launch<float>(m, r, slab, ld, jj0, off, pos, piv, glist, quant16, rec, pinfo,
-                       gmax, st);
+    return launch<float, bf>(m, r, (const float*)slab, ld, jj0, off, pos, piv, glist,
+                             quant16, rec, pinfo, gmax, st);
+  return launch<float, float>(m, r, (const float*)slab, ld, jj0, off, pos, piv, glist,
+                              quant16, rec, pinfo, gmax, st);
 }

@@ -10,32 +10,40 @@ of two paths, chosen as the JAX package chooses (`mpf.py:1115`):
   A1 :func:`strip_panel_pivots` (pivots, rows never move),
   A2 :func:`rowblock_assemble` (pivot rows, diagonal LU, U12 in the block
   column), B :func:`panel_apply_update_trim` (L21 and the update of the
-  block column's later columns); then one physical row exchange
-  (:func:`rows_exchange`) for the whole block column.
+  block column's later columns: kernel 3 on fp32 slabs, kernel 12 on bf16
+  ones); then one physical row exchange (:func:`rows_exchange`) for the
+  whole block column.
 * **masked** (`_factor_block_column` / `_inner_panel_step`): the
   reference's own algorithm (`MPF.cu:100-240`).  Per panel: the
   low-precision pre-pivoting LU of the full-height panel, factors discarded
   (:func:`hgetf2_panel_swaps`, or the caller's ``panel_kernel``); one
-  bounded row exchange of the slab (:func:`laswp_apply`); the fp32
-  no-pivot LU of the diagonal block with its inverses
-  (:func:`getf2_npv_inv_block`); L21 = A21 U11^{-1}, U12 = L11^{-1} A12 and
-  the update inside the block column as IEEE-fp32 ``torch.matmul`` products
-  on the active sub-blocks (the JAX package's full-height masked XLA dots
-  compute the same function).  Then the rows outside the block column are
-  exchanged with the block column's composed row map (:func:`laswp_apply`).
+  bounded row exchange of the slab (:func:`laswp_apply`); the no-pivot LU
+  of the diagonal block with its inverses (:func:`getf2_npv_inv_block` for
+  fp32 storage; for bf16 storage :func:`getf2_npv`, :func:`unit_lower_inv`
+  and :func:`upper_inv` as PyTorch ops, as the JAX package takes XLA ops
+  there, `mpf.py:75-90`); L21 = A21 U11^{-1}, U12 = L11^{-1} A12 and the
+  update inside the block column as IEEE-fp32 ``torch.matmul`` products of
+  upcast operands on the active sub-blocks, each result rounded once to the
+  working dtype (the JAX package's full-height masked XLA dots compute the
+  same function).  Then the rows outside the block column are exchanged
+  with the block column's composed row map (:func:`laswp_apply`).
 
 Both paths end in the trailing update (`_trailing_update`): U12 =
 L11^{-1} A12 through :func:`unit_lower_inv_blocked` and an IEEE-fp32
-``torch.matmul``, then :func:`trailing_gemm_sub` with the policy's
-``gemm_in`` operands.
+``torch.matmul`` of upcast operands, rounded once to the working dtype,
+then :func:`trailing_gemm_sub` with the policy's ``gemm_in`` operands.
+
+Working storage is fp32, or bf16 under ``ALL_BF16``: every stored value is
+then rounded to bf16 where the JAX package rounds it, and no product goes
+to a bf16 cuBLAS call.
 
 Everything stays on the input's device and no step reads a value back to
 the host.  The matrix is factored in place (in a working copy for
 :func:`mpf_factorize`).
 
 Outside this port, and raising ``NotImplementedError`` (see ROADMAP.md):
-superblocking, lookahead, the deferred exchange, the pair-layout 3D input
-and the policy ``ALL_BF16`` (bf16 working storage).
+superblocking, lookahead, the deferred exchange and the pair-layout 3D
+input.
 """
 
 from __future__ import annotations
@@ -47,8 +55,14 @@ import numpy as np
 import torch
 
 from mpf_tpu_torch.precision import PrecisionPolicy, MPF_BF16, cast_to_panel
-from mpf_tpu_torch.ops.blas3 import ieee_fp32, matmul_in, unit_lower_inv_blocked
+from mpf_tpu_torch.ops.blas3 import (
+    matmul_in,
+    unit_lower_inv,
+    unit_lower_inv_blocked,
+    upper_inv,
+)
 from mpf_tpu_torch.ops.exchange import rows_exchange
+from mpf_tpu_torch.ops.getf2 import getf2_npv
 from mpf_tpu_torch.ops.panel_fused import (
     panel_apply_update_trim,
     rowblock_assemble,
@@ -86,8 +100,6 @@ class MPFResult(NamedTuple):
 #: do not have.  1 = the tightest window (rows k..n).
 _WINDOW_QUANTUM = 1
 
-_SUPPORTED = ("mpf_bf16", "mpf_ref", "pure_fp32", "mpf_fp16")
-
 
 def _unsupported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
@@ -95,8 +107,11 @@ def _unsupported(what: str, item: str) -> NotImplementedError:
 
 
 def _check_policy(policy: PrecisionPolicy) -> None:
-    if policy.name not in _SUPPORTED:
-        raise _unsupported(f"policy {policy.name}", "Queue 1, ALL_BF16 policy")
+    """The kernels take fp32 or bf16 working storage, which covers every
+    policy of ``precision.POLICIES``."""
+    if policy.working not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"policy {policy.name}: working storage must be fp32 or bf16, "
+                         f"got {policy.working}")
 
 
 def _fused_ok(bc: int, r: int) -> bool:
@@ -233,18 +248,25 @@ def _inner_panel_step(slab, perm, piv_all, info, kk: int, jj0: int, rp: int, pol
             src = pperm[cand.long()]
         laswp_apply(slab, cand, src)
         piv_all[jj0:jj0 + rp] = piv
-    # fp32 no-pivot LU of the diagonal block, with its inverses
-    lu, linv, uinv, info_k = getf2_npv_inv_block(slab[j0:j0 + rp, jj0:jj0 + rp])
+    # no-pivot LU of the diagonal block, with its inverses: kernel 8 for
+    # fp32 storage, PyTorch ops for bf16 (the JAX package's XLA ops)
+    diag = slab[j0:j0 + rp, jj0:jj0 + rp]
+    if slab.dtype == torch.float32:
+        lu, linv, uinv, info_k = getf2_npv_inv_block(diag)
+    else:
+        lu, info_k = getf2_npv(diag)
+        linv, uinv = unit_lower_inv(lu), upper_inv(lu)
     info = torch.where((info == 0) & (info_k > 0), info_k + j0, info)
     slab[j0:j0 + rp, jj0:jj0 + rp] = lu
     e, ce = j0 + rp, jj0 + rp
-    with ieee_fp32():
-        l21 = slab[e:, jj0:ce] @ uinv                   # L21 = A21 U11^{-1}
-        slab[e:, jj0:ce] = l21
-        if ce < bc:
-            u12 = linv @ slab[j0:e, ce:]                # U12 = L11^{-1} A12
-            slab[j0:e, ce:] = u12
-            slab[e:, ce:] -= matmul_in(l21, u12, policy.gemm_in)
+    w = slab.dtype
+    l21 = matmul_in(slab[e:, jj0:ce], uinv, w).to(w)            # L21 = A21 U11^{-1}
+    slab[e:, jj0:ce] = l21
+    if ce < bc:
+        u12 = matmul_in(linv, slab[j0:e, ce:], w).to(w)         # U12 = L11^{-1} A12
+        slab[j0:e, ce:] = u12
+        # in place, computed in fp32 and rounded once to the working dtype
+        slab[e:, ce:] -= matmul_in(l21, u12, policy.gemm_in)
     return perm, info
 
 
@@ -296,8 +318,7 @@ def _trailing_update(a, ks: int, kw: int, policy, lu_diag, r: int):
     column at ``ks``, then the trailing A -= L21 @ U12, in place."""
     e = ks + kw
     linv = unit_lower_inv_blocked(lu_diag, base=min(r, 128))
-    with ieee_fp32():
-        u12 = linv @ a[ks:e, e:]
+    u12 = matmul_in(linv, a[ks:e, e:], a.dtype).to(a.dtype)
     a[ks:e, e:] = u12
     l21 = a[e:, ks:e].to(policy.gemm_in)
     trailing_gemm_sub(a, l21, u12.to(policy.gemm_in), e)

@@ -37,13 +37,13 @@ BUILD_ROOT = PKG_DIR / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
-#: The kernels, one wrapper each: 1-6 carry the fused path, 5-9 the masked
-#: path (8b is kernel 8 without the inverses, for callers that need only
-#: the LU).
+#: The kernels, one wrapper each: 1-6 carry the fused path (12 in place of
+#: 3 for bf16 slabs, ALL_BF16), 5-9 the masked path (8b is kernel 8
+#: without the inverses, for callers that need only the LU).
 KERNELS = (
     "strip_pivots",   # 1  A1 pivot search
     "rowblock",       # 2  A2 row-block assembly
-    "panel_update",   # 3  B streaming update
+    "panel_update",   # 3  B streaming update, fp32 slabs
     "rows_exchange",  # 4  bounded row exchange
     "tri_inv",        # 5  unit-lower inverse leaves
     "trailing_sub",   # 6  trailing GEMM
@@ -51,6 +51,8 @@ KERNELS = (
     "npv_inv",        # 8  no-pivot diagonal LU with L^-1 and U^-1
     "npv",            # 8b no-pivot diagonal LU
     "laswp",          # 9  bounded row exchange of the masked path
+    "l21_trim",       # 12 B for bf16 slabs: the L21 pass
+    "upd_wide",       # 12 B for bf16 slabs: the update pass
 )
 
 launches = {k: 0 for k in KERNELS}
@@ -59,13 +61,15 @@ plain_calls = {k: 0 for k in KERNELS}
 P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argument types of each C entry point (pointers and the stream as c_void_p)
 _SIGS = {
-    "mpf_strip_pivots": [I, I, P, L, I, I, P, P, P, I, I, P, P, I, P],
+    "mpf_strip_pivots": [I, I, P, L, I, I, P, P, P, I, I, I, P, P, I, P],
     "mpf_strip_record_bytes": [],
-    "mpf_rowblock": [I, I, P, L, P, I, P, P, P, P, P],
+    "mpf_rowblock": [I, I, P, L, P, I, P, P, P, P, I, P],
     "mpf_panel_update": [I, I, I, P, L, I, P, I, P, P, P, I, P],
-    "mpf_rows_exchange": [I, I, P, L, I, P, P, P, P],
-    "mpf_tri_inv": [I, I, P, L, P, P, P, L, P],
-    "mpf_trailing_sub": [I, I, I, I, P, L, P, L, P, L, P],
+    "mpf_l21_trim": [I, I, P, L, I, P, I, P, P, P],
+    "mpf_upd_wide": [I, I, I, P, P, L, P, L, P],
+    "mpf_rows_exchange": [I, I, P, L, I, P, P, P, I, P],
+    "mpf_tri_inv": [I, I, P, L, P, P, P, L, I, P],
+    "mpf_trailing_sub": [I, I, I, I, P, L, P, L, P, I, L, P],
     "mpf_hgetf2_work_bytes": [I, I, I, I],
     "mpf_hgetf2": [I, I, P, L, I, I, I, P, P, P, P, P, P, I, P],
     "mpf_npv": [I, P, L, P, P, P, P, I, P],
@@ -190,6 +194,21 @@ def fms(b: torch.Tensor, m: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     fp64, so only the final fp64 -> fp32 step rounds twice, which changes
     a result only when the fp64 difference lands exactly on an fp32 tie."""
     return (b.double() - m.double() * u.double()).float()
+
+
+def sub_mul(b: torch.Tensor, m: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """``b - m * u`` in ``b``'s dtype with the round points of the JAX
+    package's CPU backend (probed bitwise against jitted JAX functions):
+
+    * fp32: one fused multiply-add (:func:`fms`);
+    * bf16: the product rounded to bf16, then the difference rounded to bf16;
+    * fp16: the exact fp32 product, one fp32 difference, rounded to fp16."""
+    if b.dtype == torch.bfloat16:
+        prod = (m.float() * u.float()).to(torch.bfloat16).float()
+        return (b.float() - prod).to(torch.bfloat16)
+    if b.dtype == torch.float16:
+        return (b.float() - m.float() * u.float()).to(torch.float16)
+    return fms(b, m, u).to(b.dtype)
 
 
 def check(cond: bool, msg: str) -> None:

@@ -2,7 +2,9 @@
 `mpf_tpu/ops/blas3.py`).
 
 * :func:`unit_lower_inv` / :func:`upper_inv` — plain triangular inverses
-  (the JAX package's ``triangular_solve`` forms).
+  (the JAX package's ``triangular_solve`` forms; on bf16 blocks the
+  algorithm XLA expands its bf16 ``triangular_solve`` into, bit for bit on
+  the CPU, since PyTorch's ``solve_triangular`` takes no bf16).
 * :func:`trsm_u12` / :func:`trsm_l21` / :func:`trailing_update` — the
   reference's cuBLAS TRSM and GEMM calls (`MPF.cu:215-239`), each as an
   inverse GEMM (``use_inv=True``) or a ``solve_triangular``, fp32 products
@@ -12,7 +14,10 @@
   Its leaves (<= 128 x 128) are kernel 5 (``csrc/tri_inv.cu``), all leaves
   of one call in a single launch; the recursion's products stay
   ``torch.matmul``, as the JAX package leaves them to XLA, in IEEE fp32
-  (TF32 off).
+  (TF32 off) on operands upcast to fp32 — for bf16 blocks the inner
+  product is kept in fp32 and the result rounded to bf16 once, as the JAX
+  recursion does (`mpf_tpu/ops/blas3.py:79-85`), never a bf16 cuBLAS
+  product.
 """
 
 from __future__ import annotations
@@ -36,18 +41,46 @@ def ieee_fp32():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+def _tri_inv_bf16(t: torch.Tensor, lower: bool) -> torch.Tensor:
+    """Inverse of the triangular bf16 block ``t`` (already masked; unit
+    diagonal for the lower case) the way XLA expands a bf16
+    ``triangular_solve`` against the identity (`InvertDiagonalBlocks`):
+    columns scaled by the diagonal and rounded to bf16; rows of the
+    inverse one at a time from the first (lower) or last (upper), each an
+    fp32 vector-matrix product rounded to bf16; rows then divided by the
+    diagonal and rounded to bf16.  Plain PyTorch on the tensor's device."""
+    r = t.shape[0]
+    bf = torch.bfloat16
+    f = t.float()
+    d = torch.diagonal(f).clone()
+    d = torch.where(d == 0, torch.ones_like(d), d)
+    scaled = (f / d[None, :]).to(bf).float()
+    out = -torch.eye(r, dtype=torch.float32, device=t.device)
+    first = 0 if lower else r - 1
+    out[first, first] = 1.0
+    with ieee_fp32():
+        for i in range(1, r):
+            j = i if lower else r - 1 - i
+            out[j:j + 1] = -((scaled[j:j + 1] @ out).to(bf).float())
+    return (out / d[:, None]).to(bf)
+
+
 def unit_lower_inv(l11: torch.Tensor) -> torch.Tensor:
     """Inverse of the unit-lower-triangular block whose strictly-lower part
     is ``l11``'s (the diagonal of ``l11`` is ignored)."""
     r = l11.shape[0]
     eye = torch.eye(r, dtype=l11.dtype, device=l11.device)
     l = torch.tril(l11, -1) + eye
+    if l11.dtype == torch.bfloat16:
+        return _tri_inv_bf16(l, lower=True)
     return torch.linalg.solve_triangular(l, eye, upper=False, unitriangular=True)
 
 
 def upper_inv(u11: torch.Tensor) -> torch.Tensor:
     """Inverse of the upper-triangular block."""
     r = u11.shape[0]
+    if u11.dtype == torch.bfloat16:
+        return _tri_inv_bf16(torch.triu(u11), lower=False)
     eye = torch.eye(r, dtype=u11.dtype, device=u11.device)
     return torch.linalg.solve_triangular(torch.triu(u11), eye, upper=True)
 
@@ -100,7 +133,8 @@ def tri_inv_leaves_plain(l: torch.Tensor, leaves) -> torch.Tensor:
     """Plain version of kernel 5: Gauss-Jordan inverse of each unit-lower
     leaf of ``l`` (strictly-lower entries are the multipliers), written at
     the leaf's diagonal position of a zero matrix.  Same operations, in the
-    same order, as `mpf_tpu/ops/panel_pallas.py:_tri_inv_kernel`."""
+    same order, as `mpf_tpu/ops/panel_pallas.py:_tri_inv_kernel`, with the
+    round points of ``_lib.sub_mul`` (fp32 or bf16 leaves)."""
     _lib.counted_plain("tri_inv")
     out = torch.zeros_like(l)
     for o, s in leaves:
@@ -110,28 +144,30 @@ def tri_inv_leaves_plain(l: torch.Tensor, leaves) -> torch.Tensor:
         for j in range(s):
             mult = torch.where(rows > j, blk[:, j], torch.zeros((), dtype=l.dtype,
                                                                   device=l.device))
-            li = _lib.fms(li, mult[:, None], li[j][None, :])
+            li = _lib.sub_mul(li, mult[:, None], li[j][None, :])
         out[o:o + s, o:o + s] = li
     return out
 
 
 def tri_inv_leaves(l: torch.Tensor, leaves) -> torch.Tensor:
     """Kernel 5 wrapper: the inverses of the unit-lower leaves ``leaves``
-    ((offset, size), size <= 128) of the square fp32 ``l``, each at its
-    diagonal position of the returned matrix (entries outside the leaves are
-    undefined on the card, zero on the CPU).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel (one block per leaf)."""
+    ((offset, size), size <= 128) of the square fp32 or bf16 ``l``, each at
+    its diagonal position of the returned matrix (entries outside the
+    leaves are undefined on the card, zero on the CPU).  CPU tensors take
+    the plain version; CUDA tensors launch the kernel (one block per
+    leaf)."""
     if not _lib.on_cuda(l):
         return tri_inv_leaves_plain(l, leaves)
-    _lib.check(l.dtype == torch.float32 and l.dim() == 2 and l.stride(1) == 1,
-               "tri_inv: l must be a row-major fp32 matrix")
+    _lib.check(l.dtype in (torch.float32, torch.bfloat16) and l.dim() == 2
+               and l.stride(1) == 1, "tri_inv: l must be a row-major fp32 or bf16 matrix")
     sizes = [s for _, s in leaves]
     _lib.check(max(sizes) <= 128, "tri_inv: leaves must be <= 128 wide")
     meta = torch.tensor([o for o, _ in leaves] + sizes, dtype=torch.int32).to(l.device)
     out = torch.empty(l.shape, dtype=l.dtype, device=l.device)
     nl = len(leaves)
     _lib.call("mpf_tri_inv", nl, max(sizes), l.data_ptr(), l.stride(0),
-              meta.data_ptr(), meta[nl:].data_ptr(), out.data_ptr(), out.stride(0))
+              meta.data_ptr(), meta[nl:].data_ptr(), out.data_ptr(), out.stride(0),
+              int(l.dtype == torch.bfloat16))
     _lib.counted_launch("tri_inv")
     return out
 
@@ -153,7 +189,7 @@ def unit_lower_inv_blocked(l11: torch.Tensor, base: int = 128) -> torch.Tensor:
         ci = rec(o + h, s - h)
         bmat = l11[o + h:o + s, o:o + h]
         with ieee_fp32():
-            x = -(ci @ (bmat @ ai))
+            x = (-(ci.float() @ (bmat.float() @ ai.float()))).to(l11.dtype)
         out = torch.zeros((s, s), dtype=l11.dtype, device=l11.device)
         out[:h, :h] = ai
         out[h:, :h] = x

@@ -39,17 +39,18 @@ def rows_exchange(a: torch.Tensor, k: int, glist: torch.Tensor,
       * ``a[dests[i], :] = a[k + i, :]`` for every ``dests[i]`` outside the
         band (in-band destinations are covered by the band write).
 
-    CPU tensors take the plain version; CUDA tensors launch kernel 4 (a
-    gather launch, then a scatter launch)."""
+    ``a`` is fp32 or bf16 (rows are copied as they are).  CPU tensors take
+    the plain version; CUDA tensors launch kernel 4 (a gather launch, then a
+    scatter launch)."""
     if not _lib.on_cuda(a, glist, dests):
         return rows_exchange_plain(a, k, glist, dests)
-    _lib.check(a.dtype == torch.float32 and a.dim() == 2 and a.is_contiguous(),
-               "rows_exchange: a must be a contiguous fp32 matrix")
+    _lib.check(a.dtype in (torch.float32, torch.bfloat16) and a.dim() == 2
+               and a.is_contiguous(), "rows_exchange: a must be a contiguous fp32 or bf16 matrix")
     glist = glist.to(torch.int32).contiguous()
     dests = dests.to(torch.int32).contiguous()
     nr, w = glist.shape[0], a.shape[1]
     pivrows = torch.empty((nr, w), dtype=a.dtype, device=a.device)
     _lib.call("mpf_rows_exchange", nr, w, a.data_ptr(), a.stride(0), int(k),
-              glist.data_ptr(), dests.data_ptr(), pivrows.data_ptr())
+              glist.data_ptr(), dests.data_ptr(), pivrows.data_ptr(), a.element_size())
     _lib.counted_launch("rows_exchange")
     return pivrows

@@ -6,13 +6,15 @@
   the pivots (and the composed row map) escape.  :func:`panel_pivots_perm`
   is also the plain version of kernel 7 (``csrc/hgetf2.cu``).
 * :func:`getf2_npv` — the working-precision no-pivot LU with a LAPACK-style
-  zero-pivot ``info``; its elimination is the plain version of kernel 8's
-  (``csrc/npv.cu``).
+  zero-pivot ``info``; its fp32 elimination is the plain version of kernel
+  8's (``csrc/npv.cu``); on a bf16 block (ALL_BF16's masked path, which
+  the JAX package leaves to XLA ops) it is the port itself, on any device.
 * :func:`getf2_pivoted` — partial-pivoted LU keeping the factors.
 
 Round points, probed bitwise against the JAX package's jitted functions on
 the CPU (they decide the pivots): multipliers are an fp32 divide rounded to
-the panel dtype; the rank-1 update ``p - m * u`` is
+the panel dtype; the rank-1 update ``p - m * u`` (``_lib.sub_mul``; the
+same for ``getf2_npv`` on a bf16 block) is
 
 * bf16: the product rounded to bf16, then the difference rounded to bf16;
 * fp16: the fp32 difference of the exact fp32 product, rounded to fp16;
@@ -27,17 +29,6 @@ from __future__ import annotations
 import torch
 
 from mpf_tpu_torch.ops import _lib
-
-
-def rank1_sub(p: torch.Tensor, mult: torch.Tensor, urow: torch.Tensor) -> torch.Tensor:
-    """``p - mult[:, None] * urow[None, :]`` in ``p``'s dtype with the round
-    points of the JAX package's CPU backend (module docstring)."""
-    m, u = mult[:, None].float(), urow[None, :].float()
-    if p.dtype == torch.bfloat16:
-        return (p.float() - (m * u).to(torch.bfloat16).float()).to(torch.bfloat16)
-    if p.dtype == torch.float16:
-        return (p.float() - m * u).to(torch.float16)
-    return _lib.fms(p, m, u).to(p.dtype)
 
 
 def _pivot_loop(p: torch.Tensor, off: int, ncols: int, perm=None):
@@ -65,7 +56,7 @@ def _pivot_loop(p: torch.Tensor, off: int, ncols: int, perm=None):
         safe = torch.where(pivval == 0, one, pivval)
         mult = torch.where(rows > d, p[:, j].float() / safe, zero).to(p.dtype)
         urow = torch.where(cols > j, p[d], torch.zeros((), dtype=p.dtype, device=dev))
-        p = rank1_sub(p, mult, urow)
+        p = _lib.sub_mul(p, mult[:, None], urow[None, :])
         p[:, j] = torch.where(rows > d, mult, p[:, j])
     return piv, perm
 
@@ -100,9 +91,10 @@ def panel_pivots_perm(panel: torch.Tensor, row_offset: int = 0,
 
 def npv_step(b: torch.Tensor, j: int, info: torch.Tensor):
     """Column ``j`` of the no-pivot elimination of ``b``: multipliers below
-    the diagonal (true divide; a zero pivot divides by 1 and sets ``info``
-    if unset), ``b - m u`` right of column j rounded once, the multipliers
-    stored in column j.  Returns ``(b, mult (m, 1), info)``."""
+    the diagonal (true divide, rounded to ``b``'s dtype; a zero pivot
+    divides by 1 and sets ``info`` if unset), ``b - m u`` right of column j
+    with the round points of ``_lib.sub_mul`` (fp32: rounded once), the
+    multipliers stored in column j.  Returns ``(b, mult (m, 1), info)``."""
     m, r = b.shape
     dev = b.device
     rows = torch.arange(m, device=dev)[:, None]
@@ -113,7 +105,7 @@ def npv_step(b: torch.Tensor, j: int, info: torch.Tensor):
     safe = torch.where(pivval == 0, torch.ones_like(pivval), pivval)
     mult = torch.where(rows > j, b[:, j:j + 1] / safe, zero)
     urow = torch.where(cols > j, b[j:j + 1, :], zero)
-    b = torch.where((cols == j) & (rows > j), mult, _lib.fms(b, mult, urow).to(b.dtype))
+    b = torch.where((cols == j) & (rows > j), mult, _lib.sub_mul(b, mult, urow))
     return b, mult, info
 
 

@@ -3,11 +3,18 @@
 * :func:`rowblock_assemble` (A2, kernel 2, ``csrc/rowblock.cu``) — gathers
   the r pivot rows, refactors the r x r diagonal block without pivoting in
   fp32 with fused L^{-1} and U^{-1}, and builds the finished row block.
-* :func:`panel_apply_update_trim` (B, kernel 3, ``csrc/panel_update.cu``)
-  — L21 = A[:, panel] U^{-1} and the rank-r update of the columns right of
-  the panel, on the rows at virtual position >= j0 + r, in place.
+* :func:`panel_apply_update_trim` (B) — L21 = A[:, panel] U^{-1} and the
+  rank-r update of the columns right of the panel, on the rows at virtual
+  position >= j0 + r, in place: fp32 slabs through kernel 3
+  (``csrc/panel_update.cu``), bf16 slabs through kernel 12's two passes,
+  :func:`l21_trim` and :func:`upd_wide` (``csrc/l21_trim.cu``), as the JAX
+  package routes them by working dtype.
 * :func:`trailing_gemm_sub` (kernel 6, ``csrc/gemm_sub.cu``) — the trailing
   update A[e:, e:e+w] -= L21 U12 in place, fp32 accumulation.
+
+Every kernel takes fp32 or bf16 working storage (ALL_BF16) with the TPU
+kernels' round points: products of bf16 operands accumulate in fp32 and
+each stored result is rounded to bf16 once.
 
 Slabs are views into the working matrix (row stride = the matrix width);
 the kernels update them in place where the TPU kernels aliased their
@@ -23,9 +30,10 @@ from mpf_tpu_torch.ops import _lib
 from mpf_tpu_torch.ops.blas3 import ieee_fp32
 
 
-def _row_major(t: torch.Tensor, name: str) -> None:
-    _lib.check(t.dim() == 2 and t.stride(1) == 1 and t.dtype == torch.float32,
-               f"{name} must be a row-major fp32 matrix view")
+def _row_major(t: torch.Tensor, name: str,
+               dtypes=(torch.float32, torch.bfloat16)) -> None:
+    _lib.check(t.dim() == 2 and t.stride(1) == 1 and t.dtype in dtypes,
+               f"{name} must be a row-major matrix view of {dtypes}, got {t.dtype}")
 
 
 # --------------------------------------------------------------------------
@@ -34,8 +42,11 @@ def _row_major(t: torch.Tensor, name: str) -> None:
 
 def rowblock_assemble_plain(slab, glist, jj0):
     """Plain version of :func:`rowblock_assemble` — the operations of
-    `panel_fused._npv_inv_values` in the same order."""
+    `panel_fused._npv_inv_values` in the same order, and the TPU kernel's
+    rounding to the slab's dtype (L^{-1} before the U12 product, then LU,
+    U12 and U^{-1})."""
     _lib.counted_plain("rowblock")
+    w = slab.dtype
     dev = slab.device
     r = glist.shape[0]
     bc = slab.shape[1]
@@ -69,19 +80,20 @@ def rowblock_assemble_plain(slab, glist, jj0):
             acc = urow_m @ y
             ei = (cols == i).to(f32)
             y[i:i + 1, :] = (ei - acc) / safe
-        u12 = li @ staged
+        u12 = li.to(w).float() @ staged
     lanes = torch.arange(bc, device=dev)[None, :]
     placed = torch.zeros((r, bc), dtype=f32, device=dev)
     placed[:, jj0:jj0 + r] = lu
     in_panel = (lanes >= jj0) & (lanes < jj0 + r)
     rowblock = torch.where(in_panel, placed, torch.where(lanes < jj0, staged, u12))
-    return rowblock, y, info
+    return rowblock.to(w), y.to(w), info
 
 
 def rowblock_assemble(slab, glist, jj0: int):
-    """Gather the r pivot rows ``glist`` of the fp32 ``slab`` (m, bc),
-    refactor the (r, r) diagonal block at column ``jj0`` without pivoting,
-    and return ``(rowblock, uinv, info)``:
+    """Gather the r pivot rows ``glist`` of the fp32 or bf16 ``slab``
+    (m, bc), refactor the (r, r) diagonal block at column ``jj0`` without
+    pivoting (in fp32), and return ``(rowblock, uinv, info)`` in the slab's
+    dtype:
 
     * ``rowblock`` (r, bc) — columns < jj0 carry the gathered L values, the
       panel columns the diagonal LU, columns >= jj0 + r
@@ -97,13 +109,13 @@ def rowblock_assemble(slab, glist, jj0: int):
     _lib.check(r <= 128, "rowblock_assemble: r must be <= 128")
     glist = glist.to(torch.int32).contiguous()
     dev = slab.device
-    rowblock = torch.empty((r, bc), dtype=torch.float32, device=dev)
-    uinv = torch.empty((r, r), dtype=torch.float32, device=dev)
-    linv = torch.empty((r, r), dtype=torch.float32, device=dev)
+    rowblock = torch.empty((r, bc), dtype=slab.dtype, device=dev)
+    uinv = torch.empty((r, r), dtype=slab.dtype, device=dev)
+    linv = torch.empty((r, r), dtype=torch.float32, device=dev)   # scratch
     info = torch.empty((), dtype=torch.int32, device=dev)
     _lib.call("mpf_rowblock", r, bc, slab.data_ptr(), slab.stride(0),
               glist.data_ptr(), int(jj0), rowblock.data_ptr(), uinv.data_ptr(),
-              linv.data_ptr(), info.data_ptr())
+              linv.data_ptr(), info.data_ptr(), int(slab.dtype == torch.bfloat16))
     _lib.counted_launch("rowblock")
     return rowblock, uinv, info
 
@@ -114,7 +126,8 @@ def rowblock_assemble(slab, glist, jj0: int):
 
 def panel_apply_update_trim_plain(slab, pos, rowblock, uinv, j0, jj0,
                                   gemm_bf16=False):
-    """Plain version of :func:`panel_apply_update_trim`."""
+    """Plain version of kernel 3 (:func:`panel_apply_update_trim` on an
+    fp32 slab)."""
     _lib.counted_plain("panel_update")
     r = rowblock.shape[0]
     bc = slab.shape[1]
@@ -138,18 +151,27 @@ def panel_apply_update_trim_plain(slab, pos, rowblock, uinv, j0, jj0,
 
 def panel_apply_update_trim(slab, pos, rowblock, uinv, j0: int, jj0: int,
                             gemm_bf16: bool = False):
-    """IN PLACE on the fp32 ``slab`` (m, bc): for every row at virtual
-    position ``pos >= j0 + r`` compute L21 = A[:, jj0:jj0+r] U11^{-1}, write
-    it into the panel columns, and subtract L21 @ U12 (``rowblock``'s
-    columns right of the panel; bf16 operands when ``gemm_bf16``) from the
-    columns right of the panel.  Other rows and the columns left of the
-    panel are untouched.  Returns ``slab``.
+    """IN PLACE on the ``slab`` (m, bc): for every row at virtual position
+    ``pos >= j0 + r`` compute L21 = A[:, jj0:jj0+r] U11^{-1}, write it into
+    the panel columns, and subtract L21 @ U12 (``rowblock``'s columns right
+    of the panel) from the columns right of the panel.  Other rows and the
+    columns left of the panel are untouched.  Returns ``slab``.
 
-    CPU tensors take the plain version; CUDA tensors launch kernel 3."""
+    A bf16 slab (ALL_BF16) takes kernel 12's two passes, :func:`l21_trim`
+    then :func:`upd_wide` (the update only where columns lie right of the
+    panel), with bf16 operands, fp32 accumulation and one rounding to bf16
+    per stored value.  An fp32 slab takes kernel 3 (bf16 update operands
+    when ``gemm_bf16``); CPU tensors take its plain version."""
+    if slab.dtype == torch.bfloat16:
+        r = rowblock.shape[0]
+        l21 = l21_trim(slab, pos, uinv, j0, jj0)
+        if jj0 + r < slab.shape[1]:
+            upd_wide(slab, l21, rowblock, jj0)
+        return slab
     if not _lib.on_cuda(slab, pos, rowblock, uinv):
         return panel_apply_update_trim_plain(slab, pos, rowblock, uinv, j0, jj0,
                                              gemm_bf16)
-    _row_major(slab, "panel_apply_update_trim: slab")
+    _row_major(slab, "panel_apply_update_trim: slab", (torch.float32,))
     m, bc = slab.shape
     r = rowblock.shape[0]
     pos = pos.to(torch.int32).contiguous()
@@ -160,6 +182,81 @@ def panel_apply_update_trim(slab, pos, rowblock, uinv, j0: int, jj0: int,
               int(jj0), pos.data_ptr(), int(j0 + r), rowblock.data_ptr(),
               uinv.data_ptr(), l21.data_ptr(), int(bool(gemm_bf16)))
     _lib.counted_launch("panel_update")
+    return slab
+
+
+# --------------------------------------------------------------------------
+# Kernel 12: B for bf16 slabs, an L21 pass and an update pass (in place)
+# --------------------------------------------------------------------------
+
+def l21_trim_plain(slab, pos, uinv, j0, jj0):
+    """Plain version of :func:`l21_trim`."""
+    _lib.counted_plain("l21_trim")
+    r = uinv.shape[0]
+    below = (pos >= j0 + r)[:, None]
+    p = slab[:, jj0:jj0 + r]
+    with ieee_fp32():
+        l21 = (p.float() @ uinv.float()).to(slab.dtype)
+    l21 = torch.where(below, l21, torch.zeros((), dtype=slab.dtype, device=slab.device))
+    slab[:, jj0:jj0 + r] = torch.where(below, l21, p)
+    return l21
+
+
+def l21_trim(slab, pos, uinv, j0: int, jj0: int):
+    """The L21 pass of kernel 12, IN PLACE on the bf16 ``slab`` (m, bc):
+    L21 = bf16(A[:, jj0:jj0+r] @ ``uinv``) with fp32 accumulation, written
+    into the panel columns of the rows at position ``pos >= j0 + r`` (other
+    rows keep their values).  Returns the row-masked L21, (m, r) bf16 with
+    zeros on the other rows, for :func:`upd_wide`.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if not _lib.on_cuda(slab, pos, uinv):
+        return l21_trim_plain(slab, pos, uinv, j0, jj0)
+    _row_major(slab, "l21_trim: slab", (torch.bfloat16,))
+    m, r = slab.shape[0], uinv.shape[0]
+    _lib.check(uinv.dtype == torch.bfloat16 and uinv.shape == (r, r),
+               "l21_trim: uinv must be (r, r) bf16")
+    _lib.check(jj0 + r <= slab.shape[1], "l21_trim: panel outside the slab")
+    pos = pos.to(torch.int32).contiguous()
+    uinv = uinv.contiguous()
+    l21 = torch.empty((m, r), dtype=torch.bfloat16, device=slab.device)
+    _lib.call("mpf_l21_trim", m, r, slab.data_ptr(), slab.stride(0), int(jj0),
+              pos.data_ptr(), int(j0 + r), uinv.data_ptr(), l21.data_ptr())
+    _lib.counted_launch("l21_trim")
+    return l21
+
+
+def upd_wide_plain(slab, l21, rowblock, jj0):
+    """Plain version of :func:`upd_wide`."""
+    _lib.counted_plain("upd_wide")
+    c0 = jj0 + l21.shape[1]
+    with ieee_fp32():
+        upd = l21.float() @ rowblock[:, c0:].float()
+    slab[:, c0:] = (slab[:, c0:].float() - upd).to(slab.dtype)
+    return slab
+
+
+def upd_wide(slab, l21, rowblock, jj0: int):
+    """The update pass of kernel 12, IN PLACE on the bf16 ``slab`` (m, bc):
+    A[:, c0:] = bf16(fp32(A[:, c0:]) - l21 @ rowblock[:, c0:]) with
+    c0 = jj0 + r, bf16 operands and fp32 accumulation.  No row mask: the
+    rows :func:`l21_trim` left alone carry L21 = 0 and are stored back
+    unchanged.  Returns ``slab``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if not _lib.on_cuda(slab, l21, rowblock):
+        return upd_wide_plain(slab, l21, rowblock, jj0)
+    _row_major(slab, "upd_wide: slab", (torch.bfloat16,))
+    m, bc = slab.shape
+    r = l21.shape[1]
+    c0 = jj0 + r
+    _lib.check(l21.dtype == rowblock.dtype == torch.bfloat16 and l21.is_contiguous()
+               and l21.shape[0] == m and rowblock.shape == (r, bc)
+               and rowblock.stride(1) == 1, "upd_wide: l21 (m, r) / rowblock (r, bc) bf16")
+    u12, c = rowblock[:, c0:], slab[:, c0:]
+    _lib.call("mpf_upd_wide", m, bc - c0, r, l21.data_ptr(), u12.data_ptr(),
+              rowblock.stride(0), c.data_ptr(), slab.stride(0))
+    _lib.counted_launch("upd_wide")
     return slab
 
 
@@ -180,10 +277,11 @@ def trailing_gemm_sub_plain(a, l21, u12, ko, ncols=None):
 
 
 def trailing_gemm_sub(a, l21, u12, ko: int, ncols: int | None = None):
-    """IN PLACE on the fp32 matrix ``a``: a[ko:ko+m, ko:ko+ncols] -=
-    l21 @ u12 with fp32 accumulation (m = l21 rows; ``ncols`` defaults to
-    m).  ``l21``/``u12`` are both bf16 (tensor cores) or both fp32 (IEEE
-    FFMA).  Returns ``a``.
+    """IN PLACE on the matrix ``a``: a[ko:ko+m, ko:ko+ncols] -= l21 @ u12
+    with fp32 accumulation (m = l21 rows; ``ncols`` defaults to m).  For an
+    fp32 ``a``, ``l21``/``u12`` are both bf16 (tensor cores) or both fp32
+    (IEEE FFMA); a bf16 ``a`` (ALL_BF16) takes bf16 operands and each entry
+    is rounded to bf16 once after the fp32 subtract.  Returns ``a``.
 
     CPU tensors take the plain version; CUDA tensors launch kernel 6."""
     if not _lib.on_cuda(a, l21, u12):
@@ -198,9 +296,12 @@ def trailing_gemm_sub(a, l21, u12, ko: int, ncols: int | None = None):
                "trailing_gemm_sub: l21/u12 must be row-major")
     _lib.check(ko + m <= a.shape[0] and ko + ncols <= a.shape[1],
                "trailing_gemm_sub: update region outside a")
+    c_bf16 = a.dtype == torch.bfloat16
+    _lib.check(not c_bf16 or l21.dtype == torch.bfloat16,
+               "trailing_gemm_sub: a bf16 matrix takes bf16 l21/u12")
     mode = 0 if l21.dtype == torch.bfloat16 else 2
     c = a[ko:ko + m, ko:ko + ncols]
     _lib.call("mpf_trailing_sub", mode, m, ncols, kk, l21.data_ptr(), l21.stride(0),
-              u12.data_ptr(), u12.stride(0), c.data_ptr(), a.stride(0))
+              u12.data_ptr(), u12.stride(0), c.data_ptr(), int(c_bf16), a.stride(0))
     _lib.counted_launch("trailing_sub")
     return a

@@ -117,8 +117,9 @@ def strip_panel_pivots_plain(slab, off, pos, panel_dtype, jj0=0, r=None,
 
 def strip_panel_pivots(slab, off: int, pos, panel_dtype=None, jj0: int = 0,
                        r: int | None = None, quant16: bool | None = None):
-    """Virtual-pivoting panel LU of columns [jj0, jj0 + r) of the fp32
-    ``slab`` (m, w), with the panel held in ``panel_dtype`` (bf16 or fp32).
+    """Virtual-pivoting panel LU of columns [jj0, jj0 + r) of the fp32 or
+    bf16 ``slab`` (m, w), with the panel held in ``panel_dtype`` (bf16 or
+    fp32; a bf16 slab needs a bf16 panel, which the kernel takes as stored).
 
     ``off`` — the current position of the panel's diagonal; ``pos`` (m,)
     int32 — slab row -> current position.  Returns ``(piv, pos', glist)``
@@ -135,10 +136,13 @@ def strip_panel_pivots(slab, off: int, pos, panel_dtype=None, jj0: int = 0,
     quant16 = _use_quant16(panel_dtype, m) if quant16 is None else quant16
     if not _lib.on_cuda(slab, pos):
         return strip_panel_pivots_plain(slab, off, pos, panel_dtype, jj0, r, quant16)
-    _lib.check(slab.dtype == torch.float32 and slab.stride(1) == 1,
-               "strip_panel_pivots: slab must be a row-major fp32 view")
+    _lib.check(slab.dtype in (torch.float32, torch.bfloat16) and slab.stride(1) == 1,
+               "strip_panel_pivots: slab must be a row-major fp32 or bf16 view")
     _lib.check(panel_dtype in (torch.bfloat16, torch.float32),
                "strip_panel_pivots: panel dtype must be bf16 or fp32")
+    slab_bf16 = slab.dtype == torch.bfloat16
+    _lib.check(panel_dtype == torch.bfloat16 or not slab_bf16,
+               "strip_panel_pivots: a bf16 slab needs a bf16 panel")
     _lib.check(r % W == 0 and 0 < r <= 128, "strip_panel_pivots: r % 8 == 0, r <= 128")
     dev = slab.device
     pos2 = pos.to(torch.int32).clone()
@@ -149,7 +153,7 @@ def strip_panel_pivots(slab, off: int, pos, panel_dtype=None, jj0: int = 0,
     rec = torch.empty(r * gmax * rec_bytes, dtype=torch.uint8, device=dev)
     pinfo = torch.empty(r * (r + W), dtype=torch.float32, device=dev)
     _lib.call("mpf_strip_pivots", m, r, slab.data_ptr(), slab.stride(0), int(jj0),
-              int(off), pos2.data_ptr(), piv.data_ptr(), glist.data_ptr(),
+              int(off), pos2.data_ptr(), piv.data_ptr(), glist.data_ptr(), int(slab_bf16),
               int(panel_dtype == torch.bfloat16), int(bool(quant16)),
               rec.data_ptr(), pinfo.data_ptr(), gmax)
     _lib.counted_launch("strip_pivots")

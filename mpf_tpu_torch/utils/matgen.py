@@ -1,13 +1,17 @@
-"""Host matrix generators (numpy only), copied from `mpf_tpu/utils/matgen.py`.
+"""Matrix generators, ported from `mpf_tpu/utils/matgen.py`.
 
 * :func:`generate_corpus` replicates the reference's `matrix_generator.cpp`
   (glibc ``rand()`` consumption order, size schedule, value distribution)
   bit for bit.
 * :func:`random_dense`, :func:`hpl_ai_matrix`, :func:`random_conditioned`
-  are the fast seeded generators the benchmarks and tests use.
-
-The same seed gives the same matrix as the JAX package's generators, so the
-two packages can be compared on identical inputs.
+  are the fast seeded host (numpy) generators the benchmarks and tests use.
+  The same seed gives the same matrix as the JAX package's generators, so
+  the two packages can be compared on identical inputs.
+* :func:`hpl_ai_matrix_device`, :func:`random_dense_device` make the same
+  classes directly on a device with a ``torch.Generator`` (an n = 65536
+  fp64 host matrix would be 34 GB).  Their values are not the JAX PRNG's:
+  the class, the seed's determinism and the storage rounding are what
+  carry over.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 from typing import List
 
 import numpy as np
+import torch
 
 from mpf_tpu_torch.utils.glibc_rand import GlibcRand
 
@@ -71,6 +76,50 @@ def hpl_ai_matrix(n: int, seed: int = 0, dtype=np.float32) -> np.ndarray:
     idx = np.arange(n)
     a[idx, idx] += n / 4.0
     return a
+
+
+#: fp32 elements per generation chunk of the device generators (256 MB)
+_CHUNK_ELEMS = 1 << 26
+
+
+def _device_uniform(n: int, seed: int, dtype, device, finish) -> torch.Tensor:
+    """(n, n) matrix of ``dtype`` on ``device`` from U[0, 1) fp32 values of
+    a ``torch.Generator`` seeded with ``seed`` on that device, made in row
+    chunks (one fp32 chunk at a time, so the peak is the output plus one
+    chunk).  ``finish(x, r0)`` turns the fp32 chunk of rows r0.. into its
+    final fp32 values in place; each value is then cast to ``dtype`` once.
+    The chunk height depends on n only, so every dtype sees the same fp32
+    values."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    out = torch.empty((n, n), dtype=dtype, device=dev)
+    chunk = max(1, _CHUNK_ELEMS // max(n, 1))
+    for r0 in range(0, n, chunk):
+        x = torch.rand((min(chunk, n - r0), n), generator=gen, dtype=torch.float32,
+                       device=dev)
+        finish(x, r0)
+        out[r0:r0 + x.shape[0]] = x
+    return out
+
+
+def hpl_ai_matrix_device(n: int, seed: int = 0, dtype=torch.float32,
+                         device="cuda:0") -> torch.Tensor:
+    """The :func:`hpl_ai_matrix` class made on ``device``: U[-0.5, 0.5)
+    entries plus the diagonal shift n/4, computed in fp32 and cast to
+    ``dtype`` once (`mpf_tpu/utils/matgen.py:98-146`, 2D form)."""
+    def finish(x, r0):
+        x.sub_(0.5)
+        x.diagonal(r0).add_(n / 4.0)
+    return _device_uniform(n, seed, dtype, device, finish)
+
+
+def random_dense_device(n: int, seed: int = 0, dtype=torch.float32,
+                        device="cuda:0") -> torch.Tensor:
+    """The :func:`random_dense` class (uniform [0, 9.9]) made on
+    ``device``, computed in fp32 and cast to ``dtype`` once
+    (`mpf_tpu/utils/matgen.py:149-168`, 2D form)."""
+    return _device_uniform(n, seed, dtype, device, lambda x, r0: x.mul_(9.9))
 
 
 def random_conditioned(n: int, kappa: float, seed: int = 0, dtype=np.float32) -> np.ndarray:

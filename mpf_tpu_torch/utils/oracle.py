@@ -75,6 +75,60 @@ def check_factorization(
     return OracleReport(n=n, max_abs_err=max_abs, normwise_backward_err=nbe, ok=nbe <= nbe_tol)
 
 
+@dataclasses.dataclass
+class UlpReport:
+    """Entry-by-entry agreement of two bf16-valued tensors (true when ``ok``).
+    ``beyond`` counts the entries more than one ulp apart; ``slack_used`` is
+    the largest share of the allowed slack that an entry needed beyond its
+    ulp (0 when no slack was allowed)."""
+    ok: bool
+    beyond: int
+    slack_used: float
+
+    def __bool__(self) -> bool:
+        return self.ok
+
+
+def within_bf16_ulp(got: torch.Tensor, ref: torch.Tensor,
+                    slack: torch.Tensor | None = None) -> UlpReport:
+    """|got - ref| <= one bf16 ulp of the larger magnitude (plus ``slack``,
+    e.g. :func:`sum_slack`), entry by entry, in fp64."""
+    got, ref = got.double(), ref.double()
+    mag = torch.maximum(got.abs(), ref.abs()).clamp_min(torch.finfo(torch.float32).tiny)
+    over = (got - ref).abs() - torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    beyond = int((over > 0).sum())
+    if slack is None:
+        return UlpReport(beyond == 0, beyond, 0.0)
+    slack = slack.double()
+    used = over.clamp_min(0) / slack.clamp_min(torch.finfo(torch.float64).tiny)
+    return UlpReport(bool((over <= slack).all()), beyond,
+                     float(used.max()) if used.numel() else 0.0)
+
+
+def sum_slack(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """How far two fp32 values of ``c - a @ b`` (bf16 operands, so every
+    product is exact) can part when one is an IEEE round-to-nearest sum in
+    any order and the other a tensor-core (``mma.sync``) sum:
+    3 (K + 1) 2^-24 (|c| + |a| |b|), K = a's columns.  The IEEE sum's K + 1
+    roundings give (K + 1) 2^-24; NVIDIA does not specify how ``mma``
+    rounds its fp32 accumulation, and it was measured to truncate on V100,
+    T4 and A100 (Fasi, Higham, Mikaitis and Pranesh, PeerJ Comput. Sci.
+    2021), so the kernel is allowed twice that.  Where the result cancels,
+    this exceeds one bf16 ulp of the result."""
+    k = a.shape[1]
+    return 3 * (k + 1) * 2.0 ** -24 * (c.float().abs() + a.float().abs() @ b.float().abs())
+
+
+def tri_inv_slack(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """How far two fp32 evaluations of a triangular inverse ``x`` = t^-1
+    (back substitutions that sum each row's products in other orders) can
+    part: the componentwise forward-error form c_r 2^-24 |x| |t| |x|
+    (Higham, Accuracy and Stability of Numerical Algorithms, 2nd ed.,
+    section 14.2), with the constant of :func:`sum_slack`."""
+    x = x.float().abs()
+    return sum_slack(torch.zeros_like(x), x @ t.float().abs(), x)
+
+
 def ipiv_to_perm(ipiv: torch.Tensor) -> torch.Tensor:
     """Compose the sequential 1-based ``ipiv`` swaps into the row map
     ``perm`` with ``(P A)[i] = A[perm[i]]`` (host loop over n swaps)."""
@@ -95,26 +149,28 @@ def check_factorization_device(
 ) -> OracleReport:
     """Same oracle as :func:`check_factorization`, computed in fp64 on
     ``lu``'s device: P*L*U is rebuilt row-chunk by row-chunk (L rows times
-    U in fp64), so peak extra memory is one fp64 U plus one chunk."""
+    U in fp64), so peak extra memory is one fp64 U plus a few fp64 chunks
+    (at n = 65536: 32 GiB plus ~6 GiB)."""
     dev = lu.device
     n = lu.shape[0]
     perm = ipiv_to_perm(ipiv).to(dev)
-    u = torch.triu(lu.to(torch.float64))
+    u = lu.to(torch.float64, copy=True).triu_()   # a copy even for an fp64 lu
     sq_diff = 0.0
     max_abs = 0.0
     a_norm_sq = 0.0
     for r0 in range(0, n, chunk):
         r1 = min(n, r0 + chunk)
         # strictly-lower part of rows r0..r1, then the unit diagonal
-        lrows = torch.tril(lu[r0:r1].to(torch.float64), diagonal=r0 - 1)
+        lrows = lu[r0:r1].to(torch.float64, copy=True).tril_(diagonal=r0 - 1)
         idx = torch.arange(r0, r1, device=dev)
         lrows[idx - r0, idx] = 1.0
-        lu_rows = lrows @ u
+        d = lrows @ u
+        del lrows
         arows = a[perm[r0:r1].to(a.device)].to(dev, torch.float64)
-        d = lu_rows - arows
-        sq_diff += float((d * d).sum())
+        d -= arows
+        sq_diff += float(torch.linalg.vector_norm(d)) ** 2
         max_abs = max(max_abs, float(d.abs().max()))
-        a_norm_sq += float((arows * arows).sum())
+        a_norm_sq += float(torch.linalg.vector_norm(arows)) ** 2
     nbe = (sq_diff ** 0.5) / (n * a_norm_sq ** 0.5) if n and a_norm_sq > 0 else 0.0
     return OracleReport(n=n, max_abs_err=max_abs, normwise_backward_err=nbe,
                         ok=nbe <= nbe_tol)

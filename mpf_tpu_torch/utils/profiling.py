@@ -1,13 +1,14 @@
 """Where one factorization's time goes on the card (torch.profiler).
 
     python -m mpf_tpu_torch.utils.profiling --n 16384 --corpus hpl_ai \\
-        [--policy mpf_bf16] [--trace trace.json]
+        [--policy mpf_bf16] [--no-pivot] [--runs 5] [--trace trace.json]
 
-Runs one warm-up factorization, then one under ``torch.profiler`` with CPU
-and CUDA activities, and prints one JSON line: wall time, summed device
-time by kernel name, and the device's idle share (1 - busy time / the span
-from the first device activity to the last; work on one stream does not
-overlap).  Needs a CUDA device.
+Runs one warm-up factorization, then, with ``--runs N``, N more timed with
+CUDA events on fresh copies (their median and each run), then one under
+``torch.profiler`` with CPU and CUDA activities, and prints one JSON line:
+wall time, summed device time by kernel name, and the device's idle share
+(1 - busy time / the span from the first device activity to the last;
+work on one stream does not overlap).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -20,17 +21,24 @@ import torch
 
 
 def profile_factorization(n: int, corpus: str = "hpl_ai", r: int = 128,
-                          trace: str | None = None, policy: str = "mpf_bf16") -> dict:
+                          trace: str | None = None, policy: str = "mpf_bf16",
+                          pivot: bool = True, runs: int = 0) -> dict:
     from mpf_tpu_torch import make_mpf
     from mpf_tpu_torch.precision import POLICIES
     from mpf_tpu_torch.utils import matgen
+    from mpf_tpu_torch.utils.timing import cuda_time
 
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA device")
     gen = {"hpl_ai": matgen.hpl_ai_matrix, "uniform": matgen.random_dense}[corpus]
-    a0 = torch.from_numpy(gen(n, seed=0)).cuda()
-    fac = make_mpf(n, r=r, policy=POLICIES[policy])
+    pol = POLICIES[policy]
+    a0 = torch.from_numpy(gen(n, seed=0)).cuda().to(pol.working)  # factored in place
+    fac = make_mpf(n, r=r, policy=pol, pivot=pivot)
     fac(a0.clone())
+    timed = {}
+    if runs:
+        med, all_s = cuda_time(fac, a0, warmup=0, iters=runs, setup=lambda x: (x.clone(),))[:2]
+        timed = {"median_ms": med * 1e3, "runs_ms": [t * 1e3 for t in all_s]}
     work = a0.clone()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -55,7 +63,8 @@ def profile_factorization(n: int, corpus: str = "hpl_ai", r: int = 128,
     busy_ms = sum(by_kernel.values())
     span_ms = (last - first) / 1e3 if by_kernel else 0.0
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15])
-    return {"n": n, "corpus": corpus, "policy": policy, "r": r, "wall_ms": wall * 1e3,
+    return {"n": n, "corpus": corpus, "policy": policy, "r": r, "pivot": pivot, **timed,
+            "wall_ms": wall * 1e3,
             "device_busy_ms": busy_ms, "device_span_ms": span_ms,
             "idle_share": 1.0 - busy_ms / span_ms if span_ms else None,
             "kernels_ms": {k[:80]: round(v, 3) for k, v in top.items()},
@@ -67,11 +76,14 @@ def main() -> None:
     ap.add_argument("--n", type=int, default=16384)
     ap.add_argument("--corpus", choices=("hpl_ai", "uniform"), default="hpl_ai")
     ap.add_argument("--policy", default="mpf_bf16",
-                    choices=("mpf_bf16", "mpf_ref", "pure_fp32", "mpf_fp16"))
+                    choices=("mpf_bf16", "mpf_ref", "pure_fp32", "mpf_fp16", "all_bf16"))
+    ap.add_argument("--no-pivot", action="store_true")
+    ap.add_argument("--runs", type=int, default=0)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
     print(json.dumps(profile_factorization(args.n, args.corpus, trace=args.trace,
-                                           policy=args.policy)))
+                                           policy=args.policy, pivot=not args.no_pivot,
+                                           runs=args.runs)))
 
 
 if __name__ == "__main__":

@@ -10,26 +10,31 @@ import numpy as np
 import pytest
 import torch
 
-from mpf_tpu_torch import MPF_BF16, MPF_FP16, MPF_REF, PURE_FP32, make_mpf, mpf_factorize
+from mpf_tpu_torch import (
+    ALL_BF16, MPF_BF16, MPF_FP16, MPF_REF, PURE_FP32, make_mpf, mpf_factorize)
 from mpf_tpu_torch.ops import _lib
 from mpf_tpu_torch.ops.blas3 import _leaves, tri_inv_leaves, tri_inv_leaves_plain
 from mpf_tpu_torch.ops.exchange import rows_exchange, rows_exchange_plain
 from mpf_tpu_torch.ops.panel_fused import (
-    panel_apply_update_trim, panel_apply_update_trim_plain, rowblock_assemble,
-    rowblock_assemble_plain, trailing_gemm_sub, trailing_gemm_sub_plain)
+    l21_trim, l21_trim_plain, panel_apply_update_trim, panel_apply_update_trim_plain,
+    rowblock_assemble, rowblock_assemble_plain, trailing_gemm_sub, trailing_gemm_sub_plain,
+    upd_wide, upd_wide_plain)
 from mpf_tpu_torch.ops.panel_pallas import (
     getf2_npv_block, getf2_npv_inv_block, getf2_npv_inv_plain, hgetf2_panel_plain,
     hgetf2_panel_swaps, laswp_apply, laswp_plain)
 from mpf_tpu_torch.ops.panel_strip import strip_panel_pivots, strip_panel_pivots_plain
 from mpf_tpu_torch.precision import cast_to_panel
 from mpf_tpu_torch.utils import matgen
-from mpf_tpu_torch.utils.oracle import check_factorization_device
+from mpf_tpu_torch.utils.oracle import check_factorization_device, sum_slack, within_bf16_ulp
 
 pytestmark = pytest.mark.gpu
 
 _FUSED = ("strip_pivots", "rowblock", "panel_update", "rows_exchange", "tri_inv",
           "trailing_sub")
+_FUSED_BF16 = ("strip_pivots", "rowblock", "l21_trim", "upd_wide", "rows_exchange",
+               "tri_inv", "trailing_sub")
 _MASKED = ("tri_inv", "trailing_sub", "hgetf2", "npv_inv", "laswp")
+BF = torch.bfloat16
 
 
 @pytest.fixture
@@ -204,3 +209,133 @@ def test_numpy_input_lands_on_cuda(cuda):
     assert res.lu.device.type == "cuda" and res.ipiv.device.type == "cuda"
     res2 = make_mpf(256, r=32, policy=MPF_FP16)(a)
     assert res2.lu.device.type == "cuda" and torch.equal(res2.ipiv, res.ipiv)
+
+
+# ---------------------------------------------------------------- ALL_BF16
+
+def test_strip_pivots_kernel_bf16_slab(cuda):
+    """Kernel 1 on a bf16 slab: exact against its plain version and against
+    the kernel on an fp32 slab holding the same values (quant16 and exact)."""
+    slab = _hpl(2048, 1, cuda)[:, :512].to(BF).contiguous()
+    pos = torch.randperm(2048, generator=torch.Generator().manual_seed(0)).to(
+        torch.int32).to(cuda)
+    for q16 in (True, False):
+        got = strip_panel_pivots(slab, 128, pos, BF, jj0=128, r=64, quant16=q16)
+        ref = strip_panel_pivots_plain(slab, 128, pos, BF, jj0=128, r=64, quant16=q16)
+        f32 = strip_panel_pivots(slab.float(), 128, pos, BF, jj0=128, r=64, quant16=q16)
+        for x, y, z in zip(got, ref, f32):
+            assert torch.equal(x, y) and torch.equal(x, z)
+
+
+def test_rowblock_kernel_bf16(cuda):
+    """Kernel 2's bf16 instance on the pivot rows kernel 1 picks (as the
+    fused path gathers them): row block and U^-1 within one bf16 ulp of
+    the plain version, the gathered L part exact, info exact."""
+    slab = torch.from_numpy(matgen.random_dense(1024, seed=2)[:, :256].copy()).to(cuda).to(BF)
+    pos = torch.arange(1024, dtype=torch.int32, device=cuda)
+    glist = strip_panel_pivots(slab, 64, pos, BF, jj0=64, r=64)[2]
+    k = rowblock_assemble(slab, glist, 64)
+    p = rowblock_assemble_plain(slab, glist, 64)
+    assert k[0].dtype == k[1].dtype == BF
+    assert within_bf16_ulp(k[0], p[0]) and within_bf16_ulp(k[1], p[1])
+    assert torch.equal(k[0][:, :64], slab[glist.long(), :64])
+    assert int(k[2]) == int(p[2]) == 0
+
+
+@pytest.mark.parametrize("jj0", [0, 384, 896])
+def test_kernel12_on_card(cuda, jj0):
+    """Kernel 12's two passes against their plain versions on the same
+    inputs: L21 within one bf16 ulp, the update (fed the kernel's own L21)
+    within one bf16 ulp plus the fp32 sum-order bound; frozen rows and the
+    columns left of the panel exact; the last panel of a block column
+    launches no update."""
+    rng = np.random.default_rng(12 + jj0)
+    m, bc, r = 2000, 1024, 128
+    slab = torch.from_numpy(rng.standard_normal((m, bc)).astype(np.float32)).to(cuda).to(BF)
+    pos = torch.from_numpy(rng.permutation(m).astype(np.int32)).to(cuda)
+    rb = torch.from_numpy(rng.standard_normal((r, bc)).astype(np.float32)).to(cuda).to(BF)
+    ui = torch.triu(torch.from_numpy(rng.standard_normal((r, r)).astype(np.float32) / 8)).to(
+        cuda).to(BF)
+    j0 = 500
+    frozen = pos < j0 + r
+    a, b = slab.clone(), slab.clone()
+    la, lb = l21_trim(a, pos, ui, j0, jj0), l21_trim_plain(b, pos, ui, j0, jj0)
+    assert within_bf16_ulp(la, lb) and within_bf16_ulp(a, b)
+    assert torch.equal(a[frozen], slab[frozen]) and not la[frozen].any()
+    c = a.clone()
+    if jj0 + r < bc:
+        slack = sum_slack(c[:, jj0 + r:], la, rb[:, jj0 + r:])
+        upd_wide(a, la, rb, jj0)
+        upd_wide_plain(c, la, rb, jj0)
+        assert within_bf16_ulp(a[:, jj0 + r:], c[:, jj0 + r:], slack)
+        assert torch.equal(a[:, :jj0 + r], c[:, :jj0 + r])
+        assert not torch.equal(a[~frozen, jj0 + r:], slab[~frozen, jj0 + r:])
+    assert torch.equal(a[frozen], slab[frozen]) and torch.equal(a[:, :jj0], slab[:, :jj0])
+    _lib.reset_counts()
+    panel_apply_update_trim(slab.clone(), pos, rb, ui, j0, jj0)
+    assert _lib.launches["l21_trim"] == 1 and _lib.launches["panel_update"] == 0
+    assert _lib.launches["upd_wide"] == int(jj0 + r < bc)
+
+
+def test_exchange_tri_inv_trailing_bf16(cuda):
+    """Kernels 4 and 5 on bf16: exact; kernel 6's bf16-C instance within one
+    bf16 ulp of its plain version plus the fp32 sum-order bound, ragged
+    edges, outside untouched."""
+    a = _hpl(1024, 3, cuda).to(BF)
+    src = (torch.randperm(768, generator=torch.Generator().manual_seed(1))[:128] + 256).to(
+        torch.int32).to(cuda)
+    x, y = a.clone(), a.clone()
+    assert torch.equal(rows_exchange(x, 256, src, src), rows_exchange_plain(y, 256, src, src))
+    assert torch.equal(x, y)
+    rng = np.random.default_rng(5)
+    l = torch.tril(torch.from_numpy(rng.uniform(-0.5, 0.5, (384, 384)).astype(np.float32)),
+                   -1).to(cuda).to(BF)
+    leaves = _leaves(384, 128)
+    k, p = tri_inv_leaves(l, leaves), tri_inv_leaves_plain(l, leaves)
+    for o, s in leaves:
+        assert torch.equal(k[o:o + s, o:o + s], p[o:o + s, o:o + s])
+    a = _hpl(1000, 5, cuda).to(BF)
+    l21 = (torch.rand((900, 72), device=cuda) - 0.5).to(BF)
+    u12 = (torch.rand((72, 700), device=cuda) - 0.5).to(BF)
+    x, y = a.clone(), a.clone()
+    trailing_gemm_sub(x, l21, u12, 100, ncols=700)
+    trailing_gemm_sub_plain(y, l21, u12, 100, ncols=700)
+    assert within_bf16_ulp(x[100:, 100:800], y[100:, 100:800],
+                           sum_slack(a[100:, 100:800], l21, u12))
+    assert torch.equal(x[:100], a[:100]) and torch.equal(x[:, 800:], a[:, 800:])
+
+
+def test_all_bf16_factorize_on_card(cuda):
+    """ALL_BF16 on the fused route: kernels 1, 2, 12, 4, 5, 6 launched, no
+    kernel 3, no masked kernel, no plain version; device oracle at 5e-2;
+    the pivots equal the CPU run's (plain versions) on the HPL-AI matrix."""
+    n = 2048
+    a = _hpl(n, 6, cuda)
+    _lib.reset_counts()
+    res = mpf_factorize(a, r=128, policy=ALL_BF16)
+    assert res.lu.dtype == BF
+    assert all(_lib.launches[k] > 0 for k in _FUSED_BF16), _lib.launches
+    assert not any(_lib.launches[k] for k in _lib.KERNELS if k not in _FUSED_BF16)
+    assert not any(_lib.plain_calls.values())
+    assert _lib.launches["l21_trim"] == n // 128 and _lib.launches["upd_wide"] == 14
+    assert check_factorization_device(a, res.lu, res.ipiv, nbe_tol=5e-2).ok
+    cpu = mpf_factorize(a.cpu(), r=128, policy=ALL_BF16)
+    assert torch.equal(cpu.ipiv, res.ipiv.cpu()) and torch.equal(cpu.perm, res.perm.cpu())
+
+
+@pytest.mark.parametrize("pivot", [True, False])
+def test_all_bf16_masked_on_card(cuda, pivot):
+    """ALL_BF16 off the fused gate (r = 48, block 250, 250 % 48 != 0):
+    kernels 5, 6 and, with pivoting, 7 and 9 launched; kernel 8 not (the
+    bf16 diagonal is PyTorch ops); no plain version; device oracle at
+    5e-2."""
+    n = 1000
+    a = _hpl(n, 7, cuda)
+    _lib.reset_counts()
+    res = mpf_factorize(a, r=48, policy=ALL_BF16, block=250, pivot=pivot)
+    want = ("tri_inv", "trailing_sub") + (("hgetf2", "laswp") if pivot else ())
+    assert all(_lib.launches[k] > 0 for k in want), _lib.launches
+    assert not any(_lib.launches[k] for k in _lib.KERNELS if k not in want)
+    assert not any(_lib.plain_calls.values())
+    assert check_factorization_device(a, res.lu, res.ipiv, nbe_tol=5e-2).ok
+    assert pivot or torch.equal(res.ipiv.cpu(), torch.arange(1, n + 1, dtype=torch.int32))

@@ -142,7 +142,6 @@ def test_auto_block():
 
 
 @pytest.mark.parametrize("kwargs,what", [
-    (dict(policy=T.ALL_BF16), "all_bf16"),
     (dict(lookahead=True), "lookahead"),
     (dict(defer=2), "defer"),
     (dict(super_block=256), "super_block"),
@@ -151,6 +150,32 @@ def test_outside_the_slice_raises(kwargs, what):
     a = torch.eye(96)
     with pytest.raises(NotImplementedError, match=what):
         T.mpf_factorize(a, **{"r": 8, **kwargs})
+
+
+def test_policy_working_dtype_checked():
+    """Every policy of precision.POLICIES is ported; a policy whose working
+    storage the kernels do not take (fp16) is refused before any work."""
+    import dataclasses
+
+    assert set(T.precision.POLICIES) == {"mpf_bf16", "mpf_ref", "mpf_fp16", "pure_fp32",
+                                         "all_bf16"}
+    fp16 = dataclasses.replace(T.ALL_BF16, name="fp16_storage", working=torch.float16)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        T.mpf_factorize(torch.eye(16), r=8, policy=fp16)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        T.make_mpf(16, r=8, policy=fp16)
+
+
+def test_all_bf16_runs():
+    """ALL_BF16 is ported: it factors in bf16 storage (the fused path at
+    r = 8, the masked path at r = 12) and passes the oracle."""
+    n = 96
+    a = matgen.hpl_ai_matrix(n, seed=14).astype(np.float32)
+    for r in (8, 12):
+        res = T.mpf_factorize(torch.from_numpy(a), r=r, policy=T.ALL_BF16)
+        assert res.lu.dtype == torch.bfloat16 and int(res.info) == 0
+        assert check_factorization(a, res.lu.float().numpy(), res.ipiv.numpy(),
+                                   nbe_tol=5e-2).ok
 
 
 def test_3d_and_panel_kernel_raise():
