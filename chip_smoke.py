@@ -37,7 +37,26 @@ Phases, one line each:
      factorization, launch counts, oracle, peak device memory;
   5c. ALL_BF16 masked at n = 4096, r = 48, block 1000 (uniform): kernels 7
      and 9 launched, kernel 8 not;
-  5d. ALL_BF16 pivot=False at n = 4096 (HPL-AI): ipiv the identity.
+  5d. ALL_BF16 pivot=False at n = 4096 (HPL-AI): ipiv the identity;
+  2d. (run after 2c) kernel 13, the trailing GEMM with the next block
+     column's row exchange inside it, at block column 0 of n = 16384 (m =
+     15360, w = 14336, K = 1024, 1024 band rows), each instance (bf16
+     operands and fp32 C, fp32 operands, bf16 C) bitwise equal to kernel 6
+     on the same region followed by kernel 4, and against its plain version
+     (fp32 C: 1e-6 of max |a|; bf16 C: one bf16 ulp plus sum_slack);
+     kernel 11's gather, scatter from the band and scatter of values
+     bitwise equal to their plain versions, fp32 and bf16;
+  6. the lookahead driver (kernel 13) under MPF_BF16 at n = 16384 on both
+     matrices: device oracle, the exact launch counts, HPL-AI pivots and
+     row map equal to phase 3's, the uniform matrix's first pivot that
+     differs from phase 3's printed, median of 3 beside phase 3's;
+  6b. lookahead under ALL_BF16 at n = 16384 (both matrices, beside phase 5)
+     and at n = 65536 on HPL-AI (one timed run beside 5b's, launch counts,
+     oracle, peak memory);
+  6c. MPF_XCHG=split (kernel 11 in place of kernel 4): factors, pivots and
+     row map bitwise equal to phase 3's, launch counts, median of 3;
+  6d. superblock S = 4096 at n = 16384 on both matrices: the launch counts
+     of its mid and far updates, oracle, median of 3.
 Then the card's name and power limit, one JSON line of per-kernel results
 (times, errors against the plain version, launches in the main path's run,
 the least time the card could take and the time of a PyTorch call that
@@ -50,6 +69,7 @@ Any failure exits nonzero before that line.  No JAX is imported.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -74,19 +94,41 @@ MASKED = ("tri_inv", "trailing_sub", "hgetf2", "npv_inv", "laswp")
 FUSED_BF16 = ("strip_pivots", "rowblock", "l21_trim", "upd_wide", "rows_exchange",
               "tri_inv", "trailing_sub")
 MASKED_BF16 = ("tri_inv", "trailing_sub", "hgetf2", "laswp")
+SPLIT = ("rows_gather", "rows_scatter")  # kernel 11, MPF_XCHG=split
 BF = torch.bfloat16
 
 
-def fused_bf16_counts(n: int, r: int, bc: int) -> dict:
-    """Launches of one ALL_BF16 fused factorization of an n x n matrix,
-    stated from the algorithm: every panel runs kernels 1, 2 and the L21
-    pass, every panel but the last of its block column the update pass,
-    every block column one exchange, every block column but the last one
-    kernel-5 launch and one trailing GEMM."""
+def fused_counts(n: int, r: int, bc: int, bf16: bool = False, lookahead: bool = False,
+                 split: bool = False, super_cols: int = 0) -> dict:
+    """Launches of one fused factorization of an n x n matrix, stated from
+    the algorithm: every panel runs kernels 1 and 2 and B (kernel 3; under
+    ALL_BF16 kernel 12's L21 pass, and its update pass on every panel but
+    the last of its block column), every block column one exchange (kernel
+    4, or kernel 11's gather and scatter under MPF_XCHG=split), every block
+    column but the last one kernel-5 launch and one trailing GEMM.
+    Lookahead: block column 0 and the last one exchange on their own, the
+    others inside kernel 13, which runs once for each block column with a
+    wide part left (all but the last two); kernel 6 runs the narrow parts.
+    Superblock of ``super_cols`` block columns: a mid update with no
+    columns left is skipped (one a superblock, the last one's is the end of
+    the matrix), and each superblock but the last adds a far update (one
+    kernel 6, one kernel 5 per block column of it)."""
     panels, cols = n // r, n // bc
-    return {"strip_pivots": panels, "rowblock": panels, "l21_trim": panels,
-            "upd_wide": panels - cols, "rows_exchange": cols, "tri_inv": cols - 1,
-            "trailing_sub": cols - 1}
+    c = {"strip_pivots": panels, "rowblock": panels, "rows_exchange": cols,
+         "tri_inv": cols - 1, "trailing_sub": cols - 1}
+    if bf16:
+        c.update(l21_trim=panels, upd_wide=panels - cols)
+    else:
+        c["panel_update"] = panels
+    if lookahead:
+        c.update(rows_exchange=2, gemmx=cols - 2)
+    if split:
+        c.update(rows_exchange=0, rows_gather=cols, rows_scatter=cols)
+    if super_cols:
+        supers = cols // super_cols
+        mid = cols - 1 - (supers - 1)
+        c.update(trailing_sub=mid + supers - 1, tri_inv=mid + (supers - 1) * super_cols)
+    return c
 
 
 def bound(nbytes: float, fp32_ops: float = 0.0, bf16_ops: float = 0.0):
@@ -150,10 +192,13 @@ def main() -> int:
     from mpf_tpu_torch.ops import _lib
     from mpf_tpu_torch.ops.blas3 import _leaves, tri_inv_leaves, tri_inv_leaves_plain
     from mpf_tpu_torch.ops.exchange import rows_exchange, rows_exchange_plain
+    from mpf_tpu_torch.ops.gemmx import gemm_trailing, gemm_trailing_plain
     from mpf_tpu_torch.ops.panel_fused import (
         l21_trim, l21_trim_plain, panel_apply_update_trim, panel_apply_update_trim_plain,
-        rowblock_assemble, rowblock_assemble_plain,
-        trailing_gemm_sub, trailing_gemm_sub_plain, upd_wide, upd_wide_plain)
+        rowblock_assemble, rowblock_assemble_plain, rows_gather, rows_gather_plain,
+        rows_scatter_from_band, rows_scatter_from_band_plain, rows_scatter_inplace,
+        rows_scatter_inplace_plain, trailing_gemm_sub, trailing_gemm_sub_plain, upd_wide,
+        upd_wide_plain)
     from mpf_tpu_torch.ops.panel_pallas import (
         getf2_npv_block, getf2_npv_inv_block, getf2_npv_inv_plain, hgetf2_panel_plain,
         hgetf2_panel_swaps, laswp_apply, laswp_plain)
@@ -193,6 +238,9 @@ def main() -> int:
         "laswp": "mpf_tpu/ops/panel_pallas.py:283",
         "l21_trim": "mpf_tpu/ops/panel_fused.py:806",
         "upd_wide": "mpf_tpu/ops/panel_fused.py:870",
+        "rows_gather": "mpf_tpu/ops/panel_fused.py:394",
+        "rows_scatter": "mpf_tpu/ops/panel_fused.py:582",
+        "gemmx": "mpf_tpu/ops/gemmx.py:627",
     }
     source = {
         "strip_pivots": "mpf_tpu_torch/csrc/strip_pivots.cu",
@@ -207,6 +255,9 @@ def main() -> int:
         "laswp": "mpf_tpu_torch/csrc/laswp.cu",
         "l21_trim": "mpf_tpu_torch/csrc/l21_trim.cu",
         "upd_wide": "mpf_tpu_torch/csrc/l21_trim.cu",
+        "rows_gather": "mpf_tpu_torch/csrc/rows.cu",
+        "rows_scatter": "mpf_tpu_torch/csrc/rows.cu",
+        "gemmx": "mpf_tpu_torch/csrc/gemmx.cu",
     }
 
     def record(name, abs_err, rel_err, ms, plain_ms, bnd, library_ms, **extra):
@@ -713,6 +764,153 @@ def main() -> int:
     del a_k, a_p, l21, u12, c6b, hpl_b, slab0_b, uni_b
     torch.cuda.empty_cache()
 
+    # ---------------- phase 2d: kernels 13 and 11 vs plain -----------------
+    # the lookahead driver's first wide update: rows [e, n) x columns [c0, n)
+    # of block column 0, K = 1024, and block column 1's exchange (band
+    # [k, k + bc) with k = e): a band map of bc sequential swaps, band row i
+    # with a row >= k + i (swap chains bottom out in the band)
+    e, c0 = bc, 2 * bc
+    k = e
+    mt, wt = n - e, n - c0
+    perm = np.arange(k, n)
+    for i in range(bc):
+        j = rng.integers(i, n - k)
+        perm[[i, j]] = perm[[j, i]]
+    inv = np.empty(n - k, dtype=np.int64)
+    inv[perm - k] = np.arange(n - k)
+    glist = torch.from_numpy(perm[:bc].astype(np.int32)).to(dev)
+    dests = torch.from_numpy((inv[:bc] + k).astype(np.int32)).to(dev)
+    glist_l, dests_l = glist.long(), dests.long()
+    band_rows = torch.arange(k, k + bc, device=dev)
+    moved = int(((dests < k) | (dests >= k + bc)).sum())
+    # exchange bytes: bc pivot rows read and written, moved band rows read
+    # and written, over the full width
+    x_bytes = 2 * (bc + moved) * n
+    gen = torch.Generator(device=dev).manual_seed(13)
+    l21b = (torch.rand((mt, bc), generator=gen, device=dev) - 0.5).to(BF)
+    u12b = (torch.rand((bc, wt), generator=gen, device=dev) - 0.5).to(BF)
+    hpl_b = hpl.to(BF)
+    ms13 = {}
+    for tag, a13, l21, u12 in (("bf16_operands", hpl, l21b, u12b),
+                               ("fp32_operands", hpl, l21b.float(), u12b.float()),
+                               ("bf16_c", hpl_b, l21b, u12b)):
+        x, y = a13.clone(), a13.clone()
+        _lib.reset_counts()
+        _, pk = gemm_trailing(x, l21, u12, e, c0, xargs=(k, glist, dests))
+        launched13 = _lib.launches["gemmx"]
+        trailing_gemm_sub(y[:, c0 - e:], l21, u12, e, ncols=wt)     # kernel 6
+        py = rows_exchange(y, k, glist, dests)                       # kernel 4
+        x[k:k + bc], y[k:k + bc] = pk, py
+        bitwise = torch.equal(pk, py) and torch.equal(x, y)
+        del y, py
+        z = a13.clone()
+        _, pz = gemm_trailing_plain(z, l21, u12, e, c0, xargs=(k, glist, dests))
+        z[k:k + bc] = pz
+        left_exact = torch.equal(x[:, :c0], z[:, :c0]) and torch.equal(x[:e], a13[:e])
+        if tag == "bf16_c":
+            # the GEMM region's slack, moved with its rows as the exchange
+            # moves them (the same row map on both sides)
+            sl = torch.zeros(a13.shape, dtype=torch.float32, device=dev)
+            sl[e:, c0:] = sum_slack(a13[e:, c0:], l21, u12)
+            sp = rows_exchange_plain(sl, k, glist, dests)
+            sl[k:k + bc] = sp
+            rep13 = within_bf16_ulp(x, z, sl)
+            ok = rep13.ok
+            fields = dict(within_ulp_and_sum_order=ok, beyond_one_ulp=rep13.beyond,
+                          slack_used=f"{rep13.slack_used:.4f}")
+            del sl, sp
+        else:
+            rel13 = float((x - z).abs().max() / z.abs().max())
+            ok = rel13 <= 1e-6
+            fields = dict(rel_err=f"{rel13:.3e}")
+        err13 = absd(x, z)
+        phase(f"k13_gemmx_{tag}", ok and bitwise and left_exact and launched13 == 1,
+              bitwise_kernel6_then_kernel4=bitwise, left_and_above_exact=left_exact,
+              max_abs_err=f"{err13:.3e}", **fields)
+        del z, pz
+        ms13[tag] = event_ms(lambda: gemm_trailing(x, l21, u12, e, c0, xargs=(k, glist, dests)))
+        pms = event_ms(lambda: gemm_trailing_plain(x, l21, u12, e, c0,
+                                                   xargs=(k, glist, dests)), 2)
+        reg = x[e:, c0:]
+
+        def lib13():
+            if tag == "bf16_operands":
+                reg.copy_(torch.addmm(reg, l21, u12, alpha=-1, out_dtype=torch.float32))
+            else:
+                reg.addmm_(l21, u12, alpha=-1)
+            x.index_select(0, glist_l)
+            x.index_copy_(0, dests_l, x.index_select(0, band_rows))
+        lib = library(lib13, 3)
+        # kernel 6 then kernel 4 on the same shapes and instance: the serial
+        # pair kernel 13 replaces
+        y = a13.clone()
+
+        def serial():
+            trailing_gemm_sub(y[:, c0 - e:], l21, u12, e, ncols=wt)
+            rows_exchange(y, k, glist, dests)
+        serial_ms = event_ms(serial)
+        el = x.element_size()
+        ops = 2 * mt * wt * bc
+        # C read and written, each operand read once, the exchange's rows
+        b13 = bound(2 * el * mt * wt + l21.element_size() * (mt * bc + bc * wt)
+                    + el * x_bytes, ops if tag == "fp32_operands" else 0,
+                    0 if tag == "fp32_operands" else ops)
+        if tag == "bf16_operands":
+            record("gemmx", err13, err13 / float(a13.abs().max()), ms13[tag], pms, b13, lib,
+                   moved_rows=moved, kernel6_then_kernel4_ms=serial_ms)
+        elif tag == "fp32_operands":
+            kern["gemmx"].update(fp32_ms=ms13[tag], fp32_plain_ms=pms, fp32_library_ms=lib,
+                                 fp32_bound_ms=b13[0], fp32_max_abs_err=err13,
+                                 fp32_kernel6_then_kernel4_ms=serial_ms)
+        else:
+            record_bf16("gemmx", err13, ms13[tag], pms, b13, lib,
+                        kernel6_then_kernel4_ms=serial_ms)
+        print(f"[INFO] k13 {tag}: {ms13[tag]:.3f} ms, kernel 6 then kernel 4 "
+              f"{serial_ms:.3f} ms, bound {b13[0]:.3f} ms ({b13[1]})", flush=True)
+        del x, y, reg
+        torch.cuda.empty_cache()
+    del l21b, u12b
+
+    # #11 at the same band, fp32 and bf16: bitwise equal to the plain versions
+    err11 = 0.0
+    for dt, a11 in ((torch.float32, hpl), (BF, hpl_b)):
+        tag = str(dt)[6:]
+        g_k, g_p = rows_gather(a11, glist), rows_gather_plain(a11, glist)
+        x, y = a11.clone(), a11.clone()
+        rows_scatter_from_band(x, k, dests)
+        rows_scatter_from_band_plain(y, k, dests)
+        band_ok = torch.equal(x, y)
+        # values scatter: self-moves, dropped rows colliding, the band's values
+        vals = a11[k:k + bc].clone()
+        self_src = torch.where(torch.arange(bc, device=dev) % 7 == 0, dests, band_rows.int())
+        active = torch.arange(bc, device=dev) % 5 != 1
+        x2, y2 = a11.clone(), a11.clone()
+        rows_scatter_inplace(x2, dests, vals, self_src=self_src, active=active)
+        rows_scatter_inplace_plain(y2, dests, vals, self_src=self_src, active=active)
+        phase(f"k11_rows_{tag}", torch.equal(g_k, g_p) and band_ok and torch.equal(x2, y2),
+              gather_exact=torch.equal(g_k, g_p), scatter_from_band_exact=band_ok,
+              scatter_values_exact=torch.equal(x2, y2), moved_rows=moved)
+        err11 = max(err11, absd(g_k, g_p), absd(x, y), absd(x2, y2))
+        el = a11.element_size()
+        gms = event_ms(lambda: rows_gather(a11, glist))
+        gpms = event_ms(lambda: rows_gather_plain(a11, glist))
+        glib = library(lambda: a11.index_select(0, glist_l))
+        sms = event_ms(lambda: rows_scatter_from_band(x, k, dests))
+        spms = event_ms(lambda: rows_scatter_from_band_plain(y, k, dests))
+        out_d = dests_l[(dests_l < k) | (dests_l >= k + bc)]
+        out_s = band_rows[(dests_l < k) | (dests_l >= k + bc)]
+        slib = library(lambda: y.index_copy_(0, out_d, y.index_select(0, out_s)))
+        if dt == torch.float32:
+            record("rows_gather", err11, 0.0, gms, gpms, bound(2 * el * bc * n), glib)
+            record("rows_scatter", err11, 0.0, sms, spms, bound(2 * el * moved * n), slib,
+                   moved_rows=moved)
+        else:
+            record_bf16("rows_gather", err11, gms, gpms, bound(2 * el * bc * n), glib)
+            record_bf16("rows_scatter", err11, sms, spms, bound(2 * el * moved * n), slib)
+        del x, y, x2, y2, g_k, g_p
+    del hpl_b
+    torch.cuda.empty_cache()
+
     del hpl, slab0, uni, dyp, p16
     torch.cuda.empty_cache()
 
@@ -720,6 +918,7 @@ def main() -> int:
     fac = T.make_mpf(n, r=r, policy=T.MPF_BF16)
     main_counts = None
     bf16_policy_ms = {}
+    classic = {}   # corpus -> phase 3's result, the reference of phases 6, 6c and 6d
     for corpus, gen in (("hpl_ai", matgen.hpl_ai_matrix), ("uniform", matgen.random_dense)):
         a0 = torch.from_numpy(gen(n, seed=0)).to(dev)
         work = a0.clone()
@@ -753,6 +952,7 @@ def main() -> int:
               median_ms=f"{med * 1e3:.2f}",
               runs_ms="/".join(f"{t * 1e3:.2f}" for t in runs),
               tflops=f"{tflops(n, med):.2f}", card=f"'{smi}'")
+        classic[corpus] = res
         del a0, work, res
         torch.cuda.empty_cache()
 
@@ -831,8 +1031,10 @@ def main() -> int:
 
     # ---------------- phase 5: ALL_BF16 on the fused path ------------------
     fac5 = T.make_mpf(n, r=r, policy=T.ALL_BF16)
-    want5 = fused_bf16_counts(n, r, bc)
+    want5 = fused_counts(n, r, bc, bf16=True)
     bf16_counts = None
+    classic_bf16 = {}  # corpus -> phase 5's result, the reference of phase 6b
+    all_bf16_ms = {}
     for corpus, gen in (("hpl_ai", matgen.hpl_ai_matrix), ("uniform", matgen.random_dense)):
         a0 = torch.from_numpy(gen(n, seed=0)).to(dev)
         a0b = a0.to(BF)                    # the working copy's values
@@ -865,6 +1067,8 @@ def main() -> int:
               median_ms=f"{med * 1e3:.2f}", runs_ms="/".join(f"{t * 1e3:.2f}" for t in runs),
               mpf_bf16_median_ms=f"{bf16_policy_ms[corpus]:.2f}",
               tflops=f"{tflops(n, med):.2f}", card=f"'{smi}'")
+        classic_bf16[corpus] = res
+        all_bf16_ms[corpus] = med * 1e3
         del a0, a0b, work, res
         torch.cuda.empty_cache()
 
@@ -887,7 +1091,7 @@ def main() -> int:
     big_ms = start.elapsed_time(end)
     fac_peak = torch.cuda.max_memory_allocated()
     launched = dict(_lib.launches)
-    want5b = fused_bf16_counts(nb, r, bc)
+    want5b = fused_counts(nb, r, bc, bf16=True)
     counters_ok = (not any(_lib.plain_calls.values())
                    and all(launched[k] == want5b.get(k, 0) for k in _lib.KERNELS))
     lu, ipiv, info = res.lu, res.ipiv, int(res.info)
@@ -904,7 +1108,38 @@ def main() -> int:
           generate_s=f"{gen_s:.2f}", resident_gib_before=f"{resident / 2**30:.2f}",
           peak_gib_factorization=f"{fac_peak / 2**30:.2f}",
           peak_gib_oracle=f"{oracle_peak / 2**30:.2f}", card=f"'{smi}'")
-    del big_a, work, lu, ipiv
+    del work, lu
+    torch.cuda.empty_cache()
+
+    # ---------------- phase 6b at n = 65536: lookahead beside 5b -----------
+    fac6b = T.make_mpf(nb, r=r, policy=T.ALL_BF16, lookahead=True)
+    work = big_a.clone()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_counts()
+    start.record()
+    res = fac6b(work)
+    end.record()
+    end.synchronize()
+    la_ms = start.elapsed_time(end)
+    la_peak = torch.cuda.max_memory_allocated()
+    launched = dict(_lib.launches)
+    want6b = fused_counts(nb, r, bc, bf16=True, lookahead=True)
+    counters_ok = (not any(_lib.plain_calls.values())
+                   and all(launched[k] == want6b.get(k, 0) for k in _lib.KERNELS))
+    lu, info = res.lu, int(res.info)
+    same_piv = torch.equal(res.ipiv, ipiv)
+    finite = bool(torch.isfinite(lu).all())
+    rep6b = check_factorization_device(big_a, lu, res.ipiv, nbe_tol=NBE_TOL_BF16, chunk=2048)
+    phase("lookahead_all_bf16_n65536_hpl_ai",
+          rep6b.ok and counters_ok and finite and info == 0 and same_piv,
+          n=nb, policy="all_bf16", r=r, nbe=f"{rep6b.normwise_backward_err:.3e}", info=info,
+          pivots_equal_5b=same_piv, launches=json.dumps(launched, separators=(",", ":")),
+          ms=f"{la_ms:.2f}", classic_5b_ms=f"{big_ms:.2f}",
+          tflops=f"{tflops(nb, la_ms / 1e3):.2f}", resident_gib_before=f"{resident / 2**30:.2f}",
+          peak_gib_factorization=f"{la_peak / 2**30:.2f}", card=f"'{smi}'")
+    del big_a, work, lu, ipiv, res
     torch.cuda.empty_cache()
 
     # ---------------- phases 5c, 5d: ALL_BF16 off the fused path -----------
@@ -916,15 +1151,108 @@ def main() -> int:
     masked_run("all_bf16_pivot_false", 4096, r, T.ALL_BF16, "hpl_ai", matgen.hpl_ai_matrix,
                False, None, NBE_TOL_BF16, False, fused_panels=0, masked_panels=4096 // r)
 
+    # ---------------- phases 6-6d: lookahead, split exchange, superblock ----
+    def variant_run(tag, fac6, policy, corpus, gen, want, tol, ref, ref_ms,
+                    same_pivots: bool, bitwise: bool = False):
+        """One n = 16384 factorization through a variant of the fused loop.
+        Counts set to 0 just before it and read just after must equal
+        ``want`` exactly; the device oracle at ``tol``; pivots and row map
+        against ``ref`` (the classic loop's in this run): equal where
+        ``same_pivots``, else the first differing pivot is printed; with
+        ``bitwise`` the factors too; median of 3 beside ``ref_ms``."""
+        a0 = torch.from_numpy(gen(n, seed=0)).to(dev)
+        a0w = a0.to(policy.working)
+        work = a0w.clone()
+        torch.cuda.synchronize()
+        _lib.reset_counts()
+        t1 = time.perf_counter()
+        res = fac6(work)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t1
+        launched = dict(_lib.launches)
+        plain = dict(_lib.plain_calls)
+        counters_ok = (not any(plain.values())
+                       and all(launched[k] == want.get(k, 0) for k in _lib.KERNELS))
+        rep6 = check_factorization_device(a0, res.lu, res.ipiv, nbe_tol=tol)
+        perm = res.perm.long()
+        is_perm = torch.equal(torch.sort(perm).values, torch.arange(n, device=dev))
+        consistent = torch.equal(ipiv_to_perm(res.ipiv).to(dev), perm)
+        finite = bool(torch.isfinite(res.lu).all())
+        diff = (res.ipiv != ref.ipiv).nonzero()
+        first_diff = int(diff[0]) if diff.numel() else None
+        piv_eq = first_diff is None and torch.equal(res.perm, ref.perm)
+        fields = {}
+        if bitwise:
+            fields["bitwise_equal_classic"] = piv_eq and torch.equal(res.lu, ref.lu)
+        med, runs = cuda_time(fac6, a0w, warmup=1, iters=3, setup=lambda x: (x.clone(),))[:2]
+        phase(f"{tag}_{corpus}",
+              rep6.ok and is_perm and consistent and finite and counters_ok
+              and int(res.info) == 0 and (piv_eq or not same_pivots)
+              and fields.get("bitwise_equal_classic", True),
+              n=n, policy=policy.name, r=r, nbe=f"{rep6.normwise_backward_err:.3e}",
+              perm_ok=is_perm and consistent, info=int(res.info),
+              pivots_equal_classic=piv_eq, first_differing_pivot=first_diff, **fields,
+              launches=json.dumps(launched, separators=(",", ":")),
+              plain_calls=sum(plain.values()), first_run_s=f"{first_s:.3f}",
+              median_ms=f"{med * 1e3:.2f}", runs_ms="/".join(f"{t * 1e3:.2f}" for t in runs),
+              classic_median_ms=f"{ref_ms:.2f}", tflops=f"{tflops(n, med):.2f}",
+              card=f"'{smi}'")
+        del a0, a0w, work, res
+        torch.cuda.empty_cache()
+        return launched
+
+    corpora = (("hpl_ai", matgen.hpl_ai_matrix), ("uniform", matgen.random_dense))
+    # 6: lookahead, MPF_BF16 (kernel 13 in place of kernel 4 for block
+    # columns 1-14); HPL-AI's pivots must equal phase 3's
+    fac6 = T.make_mpf(n, r=r, policy=T.MPF_BF16, lookahead=True)
+    want6 = fused_counts(n, r, bc, lookahead=True)
+    lookahead_counts = None
+    for corpus, gen in corpora:
+        cnt = variant_run("lookahead_mpf_bf16", fac6, T.MPF_BF16, corpus, gen, want6,
+                          NBE_TOL, classic[corpus], bf16_policy_ms[corpus],
+                          same_pivots=corpus == "hpl_ai")
+        lookahead_counts = lookahead_counts or cnt
+    # 6b: lookahead under ALL_BF16 at n = 16384, beside phase 5
+    fac6b = T.make_mpf(n, r=r, policy=T.ALL_BF16, lookahead=True)
+    want6b = fused_counts(n, r, bc, bf16=True, lookahead=True)
+    for corpus, gen in corpora:
+        variant_run("lookahead_all_bf16", fac6b, T.ALL_BF16, corpus, gen, want6b,
+                    NBE_TOL_BF16, classic_bf16[corpus], all_bf16_ms[corpus],
+                    same_pivots=corpus == "hpl_ai")
+    # 6c: MPF_XCHG=split (kernel 11 in place of kernel 4), read by make_mpf
+    # when it builds: bitwise the classic loop's result
+    os.environ["MPF_XCHG"] = "split"
+    try:
+        fac6c = T.make_mpf(n, r=r, policy=T.MPF_BF16)
+    finally:
+        del os.environ["MPF_XCHG"]
+    want6c = fused_counts(n, r, bc, split=True)
+    split_counts = None
+    for corpus, gen in corpora:
+        cnt = variant_run("split_exchange_mpf_bf16", fac6c, T.MPF_BF16, corpus, gen, want6c,
+                          NBE_TOL, classic[corpus], bf16_policy_ms[corpus],
+                          same_pivots=True, bitwise=True)
+        split_counts = split_counts or cnt
+    # 6d: superblock S = 4096 (4 block columns): 12 mid updates, 3 far
+    fac6d = T.make_mpf(n, r=r, policy=T.MPF_BF16, super_block=4 * bc)
+    want6d = fused_counts(n, r, bc, super_cols=4)
+    for corpus, gen in corpora:
+        variant_run("superblock_4096_mpf_bf16", fac6d, T.MPF_BF16, corpus, gen, want6d,
+                    NBE_TOL, classic[corpus], bf16_policy_ms[corpus], same_pivots=False)
+    del classic, classic_bf16
+    torch.cuda.empty_cache()
+
     for name in _lib.KERNELS:
         counts = (main_counts if name in FUSED else masked_counts if name in MASKED
-                  else bf16_counts)
+                  else lookahead_counts if name == "gemmx"
+                  else split_counts if name in SPLIT else bf16_counts)
         kern[name]["launches"] = int(counts[name])
         if name in FUSED and name in MASKED:
             kern[name]["launches_masked"] = int(masked_counts[name])
         if name in FUSED_BF16 and name in FUSED + MASKED:
             kern[name]["launches_all_bf16"] = int(bf16_counts[name])
-        paths = [p for p, ks in (("fused", FUSED), ("masked", MASKED), ("all_bf16", FUSED_BF16))
+        paths = [p for p, ks in (("fused", FUSED), ("masked", MASKED), ("all_bf16", FUSED_BF16),
+                                 ("lookahead", ("gemmx",)), ("split_exchange", SPLIT))
                  if name in ks]
         kern[name]["path"] = "+".join(paths) if paths else "none (distributed path)"
     print(f"[INFO] wall_s={time.perf_counter() - wall0:.1f}", flush=True)

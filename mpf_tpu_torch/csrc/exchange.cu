@@ -19,7 +19,7 @@
 // granule windows, sorted schedules and staging rings have no counterpart.
 // Launch 1 gathers the pivot rows into the pivrows buffer (one block per
 // row, 16-byte vector copies when aligned; `rows::` in common.cuh, shared
-// with kernel 9).  Launch 2 scatters the displaced
+// with kernels 9 and 11).  Launch 2 scatters the displaced
 // band rows to their out-of-band destinations.  Stream order puts every
 // read of launch 1 before any write of launch 2; launch 2 reads only band
 // rows, which it never writes, so a position that is both a source and a
@@ -34,10 +34,7 @@ template <typename E>
 __global__ void __launch_bounds__(kThreads)
     scatter_band_kernel(int nr, int w, E* a, i64 lda, int k,
                         const int* __restrict__ dests) {
-  int i = blockIdx.x;
-  int d = dests[i];
-  if (d >= k && d < k + nr) return;  // in-band: covered by the band write
-  rows::copy_row(a + (i64)d * lda, a + (i64)(k + i) * lda, w);
+  rows::scatter_band_row(blockIdx.x, nr, w, a, lda, k, dests);
 }
 
 template <typename E>

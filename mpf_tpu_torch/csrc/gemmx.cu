@@ -1,0 +1,152 @@
+// Kernel 13: trailing GEMM with the next block column's row exchange in the
+// same launch (the lookahead driver's wide update).
+//
+// Replaces: mpf_tpu/ops/gemmx.py:_gemmx_kernel (via gemm_trailing):
+//   a[r0:r0+M, c0:c0+N] -= L21 @ U12        (fp32 accumulation, in place)
+// then, when nr > 0, the combined row exchange of the band [k, k + nr) on
+// the UPDATED matrix, over the full width w of every row:
+//   pivrows[j] = a[glist[j], :]                      (every read first)
+//   a[dests[i], :] = a[k + i, :]   for every dests[i] outside [k, k + nr)
+// The caller then writes pivrows over the band.  Gathered rows carry the
+// GEMM's results in columns [c0, w) and untouched values in [0, c0);
+// glist may name band rows.
+//
+// Three instances, as kernel 6: bf16 operands on the tensor cores with fp32
+// C (MPF_BF16); fp32 operands on FFMA, never TF32 (PURE_FP32, MPF_REF); bf16
+// operands with bf16 C, rounded once after the fp32 subtract (ALL_BF16).
+//
+// What bounds it on the H100: the GEMM, as for kernel 6 (the O(n^3) part;
+// with bf16 operands bytes of C at K = 1024 in principle, the staging of
+// this simple tile routine in practice); the exchange adds
+// 2 * (nr + moved rows) * w * (4 or 2) bytes.
+//
+// Design: one cooperative launch of as many blocks as can be resident
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor: the tile routine's static
+// shared memory and registers set the blocks per SM; a grid that cannot be
+// co-resident is refused, never run).  The blocks stride over the output
+// tiles with kernel 6's own tile routine (tile_mma / tile_ffma in
+// common.cuh), so every entry is bitwise equal to kernel 6's.  Then a grid
+// barrier, the gather, a grid barrier, the scatter.  The barriers order
+// every GEMM write before any exchange read and every gather read before
+// any scatter write; the scatter reads only band rows, which it never
+// writes.  The exchange reads through L2 (__ldcg), never the read-only
+// path, because the rows it reads were written earlier in this launch.
+// The TPU kernel's schedule machinery (granule windows, window rings,
+// strip-completion gates, the pair-major strip order) has no counterpart:
+// rows are contiguous and the barriers take its place.
+#include <cooperative_groups.h>
+
+#include "common.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+// dst[0:w] = src[0:w] with loads through L2: 16-byte vectors when both rows
+// are 16-byte aligned, elements otherwise (raw bits, no arithmetic)
+template <typename E>
+__device__ __forceinline__ void copy_row_l2(E* dst, const E* src, int w) {
+  constexpr int kPer = 16 / sizeof(E);
+  bool vec = ((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) & 15) == 0;
+  int nv = vec ? w / kPer : 0;
+  const uint4* s4 = reinterpret_cast<const uint4*>(src);
+  uint4* d4 = reinterpret_cast<uint4*>(dst);
+  for (int i = threadIdx.x; i < nv; i += gemm::kThreads) d4[i] = __ldcg(s4 + i);
+  for (int i = nv * kPer + threadIdx.x; i < w; i += gemm::kThreads) dst[i] = __ldcg(src + i);
+}
+
+// The exchange after the GEMM, kept out of line: inlined into the tile loop,
+// its live values pushed the FFMA instance to more registers and a spill,
+// and it ran about 40% slower than kernel 6 on the same shapes.
+template <typename E>
+__device__ __noinline__ void exchange(E* a, i64 ld, int w, int nr, int k,
+                                      const int* __restrict__ glist,
+                                      const int* __restrict__ dests, E* __restrict__ pivrows) {
+  cg::grid_group grid = cg::this_grid();
+  grid.sync();  // every GEMM write lands before any exchange read
+  for (int j = blockIdx.x; j < nr; j += gridDim.x)
+    copy_row_l2(pivrows + (i64)j * w, a + (i64)glist[j] * ld, w);
+  grid.sync();  // every gather read is done before any scatter write
+  for (int i = blockIdx.x; i < nr; i += gridDim.x) {
+    const int d = dests[i];
+    if (d >= k && d < k + nr) continue;  // in-band: the caller's band write
+    copy_row_l2(a + (i64)d * ld, a + (i64)(k + i) * ld, w);
+  }
+}
+
+template <typename TA, typename TB, bool kMma, typename TC, typename E>
+__global__ void __launch_bounds__(gemm::kThreads)
+    gemmx_kernel(int M, int N, int K, const TA* __restrict__ A, i64 lda,
+                 const TB* __restrict__ B, i64 ldb, TC* C, i64 ld, E* a, int w, int nr,
+                 int k, const int* __restrict__ glist, const int* __restrict__ dests,
+                 E* __restrict__ pivrows) {
+  using namespace gemm;
+  constexpr int tm = kMma ? kBM : kFM, tn = kMma ? kBN : kFN;
+  const int tiles_n = (N + tn - 1) / tn;
+  const int tiles = ((M + tm - 1) / tm) * tiles_n;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = (t / tiles_n) * tm, n0 = (t % tiles_n) * tn;
+    if constexpr (kMma)
+      tile_mma<TA, TB, TC>(M, N, K, A, lda, B, ldb, C, ld, nullptr, 0, m0, n0);
+    else
+      tile_ffma<TA, TB>(M, N, K, A, lda, B, ldb, C, ld, nullptr, 0, m0, n0);
+  }
+  // nr is the same for every block, so no barrier is left waiting
+  if (nr > 0) exchange(a, ld, w, nr, k, glist, dests, pivrows);
+}
+
+template <typename TA, typename TB, bool kMma, typename TC, typename E>
+int launch(int M, int N, int K, const void* A_, i64 lda, const void* B_, i64 ldb, void* a_,
+           i64 ld, int r0, int c0, int w, int nr, int k, const int* glist, const int* dests,
+           void* piv_, cudaStream_t st) {
+  auto kern = gemmx_kernel<TA, TB, kMma, TC, E>;
+  int dev = 0, nsm = 0, occ = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, gemm::kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  if (occ < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  constexpr int tm = kMma ? gemm::kBM : gemm::kFM, tn = kMma ? gemm::kBN : gemm::kFN;
+  const long long tiles =
+      (M > 0 && N > 0) ? (long long)((M + tm - 1) / tm) * ((N + tn - 1) / tn) : 0;
+  const long long want = tiles > nr ? tiles : nr;
+  int G = (int)(want < (long long)occ * nsm ? want : (long long)occ * nsm);
+  if (G < 1) return (int)cudaGetLastError();  // nothing to do
+  const TA* A = (const TA*)A_;
+  const TB* B = (const TB*)B_;
+  E* a = (E*)a_;
+  TC* C = (TC*)a_ + (i64)r0 * ld + c0;
+  E* pivrows = (E*)piv_;
+  void* args[] = {&M, &N, &K, &A, &lda, &B, &ldb, &C, &ld, &a, &w, &nr, &k,
+                  &glist, &dests, &pivrows};
+  err = cudaLaunchCooperativeKernel((void*)kern, dim3(G), dim3(gemm::kThreads), args, 0, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// mode 0: bf16 operands on the tensor cores; 2: fp32 operands on FFMA.  The
+// matrix a is fp32, or bf16 when c_bf16 (mode 0 only); row stride ld, row
+// width w (the exchange copies w elements a row).  nr = 0: no exchange
+// (glist, dests and pivrows unused).
+MPF_API int mpf_gemmx(int mode, int M, int N, int K, const void* A, i64 lda, const void* B,
+                      i64 ldb, void* a, int c_bf16, i64 ld, int r0, int c0, int w, int nr,
+                      int k, const int* glist, const int* dests, void* pivrows,
+                      void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  typedef __nv_bfloat16 bf;
+  if (c_bf16) {
+    if (mode != 0) return (int)cudaErrorInvalidValue;
+    return launch<bf, bf, true, bf, uint16_t>(M, N, K, A, lda, B, ldb, a, ld, r0, c0, w, nr,
+                                              k, glist, dests, pivrows, st);
+  }
+  if (mode == 0)
+    return launch<bf, bf, true, float, uint32_t>(M, N, K, A, lda, B, ldb, a, ld, r0, c0, w,
+                                                 nr, k, glist, dests, pivrows, st);
+  if (mode == 2)
+    return launch<float, float, false, float, uint32_t>(M, N, K, A, lda, B, ldb, a, ld, r0,
+                                                        c0, w, nr, k, glist, dests, pivrows,
+                                                        st);
+  return (int)cudaErrorInvalidValue;
+}

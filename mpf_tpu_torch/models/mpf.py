@@ -28,10 +28,32 @@ of two paths, chosen as the JAX package chooses (`mpf.py:1115`):
   same function).  Then the rows outside the block column are exchanged
   with the block column's composed row map (:func:`laswp_apply`).
 
+The fused path's row exchange is kernel 4 (:func:`rows_exchange`), or,
+under ``MPF_XCHG=split``, kernel 11: :func:`rows_gather` then
+:func:`rows_scatter_from_band` (`mpf.py:1149-1164`); both end in the band
+write and give the same matrix.
+
 Both paths end in the trailing update (`_trailing_update`): U12 =
 L11^{-1} A12 through :func:`unit_lower_inv_blocked` and an IEEE-fp32
 ``torch.matmul`` of upcast operands, rounded once to the working dtype,
 then :func:`trailing_gemm_sub` with the policy's ``gemm_in`` operands.
+
+Two variants of the loop, as in the JAX package:
+
+* **superblock** (``super_block=S`` / ``MPF_SUPER``, `_resolve_super`):
+  inside each S-wide superblock the trailing update stops at the
+  superblock's right edge (the mid update); once per superblock the far
+  columns take one K = S update whose U12 is solved per inner block, with
+  the coupling as ``gemm_in`` correction products (`mpf.py:1213-1227`).
+* **lookahead** (``lookahead=True`` / ``MPF_LOOKAHEAD=1``,
+  `_lookahead_factorize`): each trailing update is split at the next block
+  column's right edge; the next panel is factored after the narrow part,
+  and its row exchange runs inside the wide part's GEMM (kernel 13,
+  :func:`gemm_trailing`).  The same arithmetic in another order, on one
+  stream.  Its gate is the JAX package's (`mpf.py:1059-1081`: pivoting,
+  no superblock, the combined exchange, n >= 2 block, every block column
+  fused) without the TPU tile alignment (n and block multiples of 1024),
+  which kernel 13 does not need.
 
 Working storage is fp32, or bf16 under ``ALL_BF16``: every stored value is
 then rounded to bf16 where the JAX package rounds it, and no product goes
@@ -42,8 +64,8 @@ the host.  The matrix is factored in place (in a working copy for
 :func:`mpf_factorize`).
 
 Outside this port, and raising ``NotImplementedError`` (see ROADMAP.md):
-superblocking, lookahead, the deferred exchange and the pair-layout 3D
-input.
+the deferred exchange (``defer``, ``MPF_DEFER``, see
+:func:`mpf_tpu_torch.config.resolve_defer`) and the pair-layout 3D input.
 """
 
 from __future__ import annotations
@@ -54,6 +76,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mpf_tpu_torch import config
 from mpf_tpu_torch.precision import PrecisionPolicy, MPF_BF16, cast_to_panel
 from mpf_tpu_torch.ops.blas3 import (
     matmul_in,
@@ -62,10 +85,13 @@ from mpf_tpu_torch.ops.blas3 import (
     upper_inv,
 )
 from mpf_tpu_torch.ops.exchange import rows_exchange
+from mpf_tpu_torch.ops.gemmx import gemm_trailing
 from mpf_tpu_torch.ops.getf2 import getf2_npv
 from mpf_tpu_torch.ops.panel_fused import (
     panel_apply_update_trim,
     rowblock_assemble,
+    rows_gather,
+    rows_scatter_from_band,
     trailing_gemm_sub,
 )
 from mpf_tpu_torch.ops.panel_pallas import (
@@ -74,6 +100,22 @@ from mpf_tpu_torch.ops.panel_pallas import (
     laswp_apply,
 )
 from mpf_tpu_torch.ops.panel_strip import strip_panel_pivots
+
+
+class _Knobs(NamedTuple):
+    """The driver's env-resolved options (`config`): the requested
+    superblock width before its shape checks, the lookahead request and
+    the exchange mode."""
+
+    super_block: int | None
+    lookahead: bool
+    combined: bool
+
+
+def _knobs(super_block="auto", lookahead: bool | None = None) -> _Knobs:
+    """Read the env knobs once; explicit arguments win."""
+    return _Knobs(config.super_block(super_block), config.lookahead(lookahead),
+                  config.combined_exchange())
 
 
 class MPFResult(NamedTuple):
@@ -313,56 +355,160 @@ def _masked_block_column(a, k: int, bc: int, r: int, policy, pivot: bool, panel_
     return info, perm_total
 
 
-def _trailing_update(a, ks: int, kw: int, policy, lu_diag, r: int):
-    """U12 := L11^{-1} A12 over the columns right of the ``kw``-wide block
-    column at ``ks``, then the trailing A -= L21 @ U12, in place."""
+def _resolve_super(n: int, block: int, s: int | None) -> int | None:
+    """The superblock width, or None (disabled): the requested width ``s``
+    (``_Knobs.super_block``, already read through :func:`config.super_block`)
+    kept only when it is a multiple of ``block`` wider than it and n holds
+    two of them (`mpf.py:462-483`); any other width disables it without
+    error."""
+    if s is not None and (s % block or s <= block or n < 2 * s):
+        return None
+    return s
+
+
+def _exchange(a, k: int, bc: int, stage, combined: bool) -> None:
+    """The fused block column's physical row exchange, then the band
+    write: kernel 4, or kernel 11's gather and scatter from the band
+    (``MPF_XCHG=split``), which move the same rows."""
+    glist, dests = stage[2], stage[3]
+    if combined:
+        pivrows = rows_exchange(a, k, glist, dests)
+    else:
+        pivrows = rows_gather(a, glist)
+        rows_scatter_from_band(a, k, dests)
+    a[k:k + bc] = pivrows
+
+
+def _trailing_update(a, ks: int, kw: int, ce: int, policy, lu_diag, r: int,
+                     u12_block: int | None = None, linv=None):
+    """From the ``kw``-wide packed diagonal block at ``ks``: U12 :=
+    L11^{-1} A12 over the columns [ks + kw, ce), then A[ks+kw:, ks+kw:ce]
+    -= L21 @ U12 (kernel 6), in place (`mpf.py:486-577`).  ``ce = n`` is
+    the classic full-width update; the superblock driver passes the
+    superblock's end (mid update) and ``kw`` = S with ``u12_block`` (far
+    update), the lookahead driver the next block column's end and the
+    ``linv`` it computed once for both parts.
+
+    U12 is IEEE fp32 products of operands in the working dtype, rounded
+    once.  With ``u12_block`` the far U12 is solved per inner block
+    (:func:`unit_lower_inv_blocked` of each diagonal block) and the
+    coupling to the blocks below is subtracted as ``policy.gemm_in``
+    products with fp32 accumulation, each band rounded once."""
     e = ks + kw
-    linv = unit_lower_inv_blocked(lu_diag, base=min(r, 128))
-    u12 = matmul_in(linv, a[ks:e, e:], a.dtype).to(a.dtype)
-    a[ks:e, e:] = u12
+    w = ce - e
+    if w <= 0:
+        return a
+    if u12_block and kw > u12_block:
+        for bs in range(0, kw, u12_block):
+            bw = min(u12_block, kw - bs)
+            lo = ks + bs
+            linv_b = unit_lower_inv_blocked(a[lo:lo + bw, lo:lo + bw], base=min(r, 128))
+            u12_b = matmul_in(linv_b, a[lo:lo + bw, e:ce], a.dtype).to(a.dtype)
+            a[lo:lo + bw, e:ce] = u12_b
+            if bs + bw < kw:
+                corr = matmul_in(a[lo + bw:e, lo:lo + bw], u12_b, policy.gemm_in)
+                a[lo + bw:e, e:ce] = (a[lo + bw:e, e:ce].float() - corr).to(a.dtype)
+        u12 = a[ks:e, e:ce]
+    else:
+        if linv is None:
+            linv = unit_lower_inv_blocked(lu_diag, base=min(r, 128))
+        u12 = matmul_in(linv, a[ks:e, e:ce], a.dtype).to(a.dtype)
+        a[ks:e, e:ce] = u12
     l21 = a[e:, ks:e].to(policy.gemm_in)
-    trailing_gemm_sub(a, l21, u12.to(policy.gemm_in), e)
+    trailing_gemm_sub(a, l21, u12.to(policy.gemm_in), e, ncols=w)
     return a
 
 
-def _factorize_inplace(a, r: int, policy, block: int, pivot: bool = True,
-                       panel_kernel=None) -> MPFResult:
+def _lookahead_ok(n: int, r: int, block: int, policy, pivot: bool, panel_kernel,
+                  S, knobs: _Knobs) -> bool:
+    """The lookahead gate (`mpf.py:1059-1081` without the TPU's 1024
+    alignment of n and block)."""
+    return (knobs.lookahead and pivot and S is None and knobs.combined and n >= 2 * block
+            and all(_takes_fused(min(block, n - k), r, policy, pivot, panel_kernel)
+                    for k in range(0, n, block) if n - k > 1))
+
+
+def _lookahead_factorize(a, r: int, policy, block: int, ipiv, info, perm_total) -> MPFResult:
+    """One-deep lookahead (`mpf.py:662-741`): block column k's trailing
+    update is split at the next block column's right edge e2.  The narrow
+    part (columns [e, e2)) runs first; then the next panel is factored;
+    then the wide part (columns [e2, n)): its U12, and kernel 13 with the
+    next block column's row exchange inside it, followed by the band write.
+    Block column 0 (the prologue) and a block column with nothing wide
+    after it exchange on their own (kernel 4).  Pivots and the row map are
+    those of the classic loop: the narrow update computes the same entries
+    of the next panel as the full-width one."""
+    n = a.shape[0]
+    nb = [(k, min(block, n - k)) for k in range(0, n, block) if n - k > 1]
+    info, stage = _fused_panel_stage(a, nb[0][0], nb[0][1], r, policy, ipiv, info)
+    eager = True               # this block column's exchange is still to do
+    for i, (k, bc) in enumerate(nb):
+        u_all = stage[4]
+        if eager:
+            _exchange(a, k, bc, stage, combined=True)
+        a[k:k + bc, k:k + bc] = u_all
+        perm_total = _compose_perm(perm_total, k, bc, stage)
+        e = k + bc
+        if i + 1 == len(nb):
+            if e < n:
+                _trailing_update(a, k, bc, n, policy, u_all, r)
+            break
+        kn, bc2 = nb[i + 1]
+        e2 = kn + bc2
+        linv = unit_lower_inv_blocked(u_all, base=min(r, 128))
+        _trailing_update(a, k, bc, e2, policy, u_all, r, linv=linv)
+        info, stage = _fused_panel_stage(a, kn, bc2, r, policy, ipiv, info)
+        eager = e2 >= n
+        if eager:
+            continue           # nothing wide to run the exchange in
+        u12w = matmul_in(linv, a[k:e, e2:], a.dtype).to(a.dtype)
+        a[k:e, e2:] = u12w
+        l21 = a[e:, k:e].to(policy.gemm_in)
+        _, pivrows = gemm_trailing(a, l21, u12w.to(policy.gemm_in), e, e2,
+                                   xargs=(kn, stage[2], stage[3]))
+        a[kn:kn + bc2] = pivrows
+    return MPFResult(lu=a, ipiv=ipiv, info=info, perm=perm_total)
+
+
+def _factorize_inplace(a, r: int, policy, block: int, pivot: bool, panel_kernel,
+                       knobs: _Knobs) -> MPFResult:
     n = a.shape[0]
     dev = a.device
     ipiv = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
     info = torch.zeros((), dtype=torch.int32, device=dev)
     perm_total = torch.arange(n, dtype=torch.int32, device=dev)
+    S = _resolve_super(n, block, knobs.super_block)
+    if _lookahead_ok(n, r, block, policy, pivot, panel_kernel, S, knobs):
+        return _lookahead_factorize(a, r, policy, block, ipiv, info, perm_total)
     for k in range(0, n, block):
         bc = min(block, n - k)
         if n - k <= 1:
             break
         if _takes_fused(bc, r, policy, pivot, panel_kernel):
             info, stage = _fused_panel_stage(a, k, bc, r, policy, ipiv, info)
-            glist_b, dests_b, u_all = stage[2], stage[3], stage[4]
-            pivrows = rows_exchange(a, k, glist_b, dests_b)
-            a[k:k + bc] = pivrows
-            a[k:k + bc, k:k + bc] = u_all
+            _exchange(a, k, bc, stage, knobs.combined)
+            a[k:k + bc, k:k + bc] = stage[4]
             perm_total = _compose_perm(perm_total, k, bc, stage)
         else:
             info, perm_total = _masked_block_column(a, k, bc, r, policy, pivot,
                                                     panel_kernel, ipiv, info, perm_total)
         if k + bc < n:
-            _trailing_update(a, k, bc, policy, a[k:k + bc, k:k + bc], r)
+            # superblock S: the mid update stops at the superblock's end; the
+            # far columns take one K = S update once the superblock is done
+            sb_end = n if S is None else min(k - k % S + S, n)
+            _trailing_update(a, k, bc, sb_end, policy, a[k:k + bc, k:k + bc], r)
+            if S is not None and k + bc == sb_end < n:
+                _trailing_update(a, sb_end - S, S, n, policy, None, r, u12_block=block)
     return MPFResult(lu=a, ipiv=ipiv, info=info, perm=perm_total)
 
 
-def _check_args(a, super_block, lookahead, defer):
+def _check_args(a, defer, pivot: bool) -> None:
     if a.dim() == 3:
         raise _unsupported("pair-layout (3D) input", "Queue 2, pair3d kernels")
     if a.dim() != 2 or a.shape[0] != a.shape[1]:
         raise _unsupported(f"non-square input {tuple(a.shape)}",
                            "Queue 1, deferred-exchange driver")
-    if super_block not in ("auto", None):
-        raise _unsupported("super_block", "Queue 1, env-gated drivers")
-    if lookahead:
-        raise _unsupported("lookahead", "Queue 1, env-gated drivers")
-    if defer:
-        raise _unsupported("defer", "Queue 1, env-gated drivers")
+    config.resolve_defer(defer, pivot)
 
 
 def _as_tensor(a, device) -> torch.Tensor:
@@ -381,13 +527,11 @@ def _as_tensor(a, device) -> torch.Tensor:
     return a.to(device)
 
 
-def mpf_factorize_inplace(a: torch.Tensor, r: int = 128,
-                          policy: PrecisionPolicy = MPF_BF16,
-                          block: int | None = None, pivot: bool = True,
-                          panel_kernel=None) -> MPFResult:
-    """Factor the contiguous working-dtype square matrix ``a`` IN PLACE
-    (``result.lu`` is ``a``, or a padded copy for an n that is not a
-    multiple of r and that would otherwise leave the fused path)."""
+def _factorize_entry(a: torch.Tensor, r: int, policy: PrecisionPolicy, block,
+                     pivot: bool, panel_kernel, knobs: _Knobs) -> MPFResult:
+    """In-place factorization of the contiguous working-dtype ``a`` with
+    the knobs already read; an n that is not a multiple of r and would
+    otherwise leave the fused path factors its identity extension."""
     _check_policy(policy)
     n = a.shape[0]
     if a.dtype != policy.working or not a.is_contiguous():
@@ -401,7 +545,7 @@ def mpf_factorize_inplace(a: torch.Tensor, r: int = 128,
         apad[:n, :n] = a
         tail = torch.arange(n, n_pad, device=a.device)
         apad[tail, tail] = 1.0
-        res = _factorize_inplace(apad, r, policy, block_pad)
+        res = _factorize_inplace(apad, r, policy, block_pad, True, None, knobs)
         return MPFResult(
             lu=res.lu[:n, :n],
             ipiv=res.ipiv[:n],
@@ -409,7 +553,20 @@ def mpf_factorize_inplace(a: torch.Tensor, r: int = 128,
             info=torch.where(res.info > n, torch.zeros_like(res.info), res.info),
             perm=res.perm[:n],
         )
-    return _factorize_inplace(a, r, policy, block, pivot, panel_kernel)
+    return _factorize_inplace(a, r, policy, block, pivot, panel_kernel, knobs)
+
+
+def mpf_factorize_inplace(a: torch.Tensor, r: int = 128,
+                          policy: PrecisionPolicy = MPF_BF16,
+                          block: int | None = None, pivot: bool = True,
+                          panel_kernel=None, super_block="auto",
+                          lookahead: bool | None = None) -> MPFResult:
+    """Factor the contiguous working-dtype square matrix ``a`` IN PLACE
+    (``result.lu`` is ``a``, or a padded copy for an n that is not a
+    multiple of r and that would otherwise leave the fused path).  The env
+    knobs (`mpf_tpu_torch.config`) are read at each call."""
+    return _factorize_entry(a, r, policy, block, pivot, panel_kernel,
+                            _knobs(super_block, lookahead))
 
 
 def mpf_factorize(
@@ -428,15 +585,21 @@ def mpf_factorize(
     to ``policy.working``.  A numpy array is placed on ``device`` (default
     ``cuda:0``; ``device="cpu"`` factors on the CPU); a tensor stays on its
     own device unless ``device`` is given.  Runs the kernels for a CUDA
-    tensor and their plain versions for a CPU tensor."""
+    tensor and their plain versions for a CPU tensor.
+
+    ``super_block``: superblock width (default ``"auto"``: the
+    ``MPF_SUPER`` knob, else off); ``lookahead``: the one-deep lookahead
+    driver (None: the ``MPF_LOOKAHEAD`` knob); the exchange mode follows
+    ``MPF_XCHG``.  The knobs are read at each call.  ``defer`` asking for a
+    deferred-exchange group raises ``NotImplementedError``."""
     a = _as_tensor(a, device)
-    _check_args(a, super_block, lookahead, defer)
+    _check_args(a, defer, pivot)
     _check_policy(policy)
     work = a.to(dtype=policy.working, copy=True).contiguous()
-    return mpf_factorize_inplace(work, r=r, policy=policy, block=block, pivot=pivot)
+    return _factorize_entry(work, r, policy, block, pivot, None,
+                            _knobs(super_block, lookahead))
 
 
-@functools.lru_cache(maxsize=32)
 def make_mpf(
     n: int,
     r: int = 128,
@@ -456,17 +619,26 @@ def make_mpf(
     as :func:`mpf_factorize` places it), the input is copied first.
     ``panel_kernel(panel, row_offset=, prev_perm=) -> (piv, perm,
     composed)`` replaces kernel 7 in the masked path, which every block
-    column then takes."""
-    _check_args(torch.empty(n, n, device="meta"), super_block, lookahead, defer)
+    column then takes.  ``super_block``, ``lookahead`` and the env knobs
+    (``MPF_SUPER``, ``MPF_LOOKAHEAD``, ``MPF_XCHG``, ``MPF_DEFER``) are read
+    here, once: the factorizer keeps them, as the JAX package freezes its
+    knobs at the first trace.  Factorizers are cached by their arguments
+    and the knobs read."""
+    _check_args(torch.empty(n, n, device="meta"), defer, pivot)
     _check_policy(policy)
+    return _make_mpf(n, r, policy, pivot, block, panel_kernel, donate,
+                     _knobs(super_block, lookahead), device)
 
+
+@functools.lru_cache(maxsize=32)
+def _make_mpf(n: int, r: int, policy: PrecisionPolicy, pivot: bool, block, panel_kernel,
+              donate: bool, knobs: _Knobs, device):
     def fac(a) -> MPFResult:
         if tuple(a.shape) != (n, n):
             raise ValueError(f"expected ({n}, {n}), got {tuple(a.shape)}")
         t = _as_tensor(a, device)
         if not (t is a and donate and t.dtype == policy.working and t.is_contiguous()):
             t = t.to(dtype=policy.working, copy=True).contiguous()
-        return mpf_factorize_inplace(t, r=r, policy=policy, block=block, pivot=pivot,
-                                     panel_kernel=panel_kernel)
+        return _factorize_entry(t, r, policy, block, pivot, panel_kernel, knobs)
 
     return fac

@@ -38,8 +38,9 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 #: The kernels, one wrapper each: 1-6 carry the fused path (12 in place of
-#: 3 for bf16 slabs, ALL_BF16), 5-9 the masked path (8b is kernel 8
-#: without the inverses, for callers that need only the LU).
+#: 3 for bf16 slabs, ALL_BF16; 11 in place of 4 under ``MPF_XCHG=split``;
+#: 13 for the lookahead driver's wide update), 5-9 the masked path (8b is
+#: kernel 8 without the inverses, for callers that need only the LU).
 KERNELS = (
     "strip_pivots",   # 1  A1 pivot search
     "rowblock",       # 2  A2 row-block assembly
@@ -53,6 +54,9 @@ KERNELS = (
     "laswp",          # 9  bounded row exchange of the masked path
     "l21_trim",       # 12 B for bf16 slabs: the L21 pass
     "upd_wide",       # 12 B for bf16 slabs: the update pass
+    "rows_gather",    # 11 gather of arbitrary rows
+    "rows_scatter",   # 11 in-place row scatter (from values or from the band)
+    "gemmx",          # 13 trailing GEMM with the next row exchange inside it
 )
 
 launches = {k: 0 for k in KERNELS}
@@ -74,6 +78,9 @@ _SIGS = {
     "mpf_hgetf2": [I, I, P, L, I, I, I, P, P, P, P, P, P, I, P],
     "mpf_npv": [I, P, L, P, P, P, P, I, P],
     "mpf_laswp": [I, I, P, L, P, P, P, I, P],
+    "mpf_rows_gather": [I, I, P, L, P, P, I, P],
+    "mpf_rows_scatter": [I, I, P, L, P, P, L, P, P, I, I, P],
+    "mpf_gemmx": [I, I, I, I, P, L, P, L, P, I, L, I, I, I, I, I, P, P, P, P],
     "mpf_error_string": [I],
 }
 _RESTYPES = {"mpf_error_string": ctypes.c_char_p, "mpf_hgetf2_work_bytes": L}

@@ -16,16 +16,23 @@ import torch
 from mpf_tpu_torch.ops import _lib
 
 
-def rows_exchange_plain(a: torch.Tensor, k: int, glist: torch.Tensor,
-                        dests: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`rows_exchange` (same in-place contract)."""
-    _lib.counted_plain("rows_exchange")
-    nr = glist.shape[0]
-    pivrows = a[glist.long()]                 # gathered copy (all reads first)
+def scatter_band(a: torch.Tensor, k: int, dests: torch.Tensor) -> None:
+    """``a[dests[i], :] = a[k + i, :]`` for every ``dests[i]`` outside the
+    band ``[k, k + nr)``, the band read before any write: the scatter half
+    of the plain exchanges (kernels 4, 11 and 13), uncounted."""
+    nr = dests.shape[0]
     band = a[k:k + nr].clone()
     d = dests.long()
     act = (d < k) | (d >= k + nr)
     a[d[act]] = band[act]
+
+
+def rows_exchange_plain(a: torch.Tensor, k: int, glist: torch.Tensor,
+                        dests: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`rows_exchange` (same in-place contract)."""
+    _lib.counted_plain("rows_exchange")
+    pivrows = a[glist.long()]                 # gathered copy (all reads first)
+    scatter_band(a, k, dests)
     return pivrows
 
 

@@ -11,6 +11,10 @@
   package routes them by working dtype.
 * :func:`trailing_gemm_sub` (kernel 6, ``csrc/gemm_sub.cu``) — the trailing
   update A[e:, e:e+w] -= L21 U12 in place, fp32 accumulation.
+* :func:`rows_gather`, :func:`rows_scatter_inplace`,
+  :func:`rows_scatter_from_band` (kernel 11, ``csrc/rows.cu``) — a gather of
+  arbitrary rows and an in-place row scatter: the split row exchange
+  (``MPF_XCHG=split``) and, later, the fused distributed path.
 
 Every kernel takes fp32 or bf16 working storage (ALL_BF16) with the TPU
 kernels' round points: products of bf16 operands accumulate in fp32 and
@@ -28,6 +32,7 @@ import torch
 
 from mpf_tpu_torch.ops import _lib
 from mpf_tpu_torch.ops.blas3 import ieee_fp32
+from mpf_tpu_torch.ops.exchange import scatter_band
 
 
 def _row_major(t: torch.Tensor, name: str,
@@ -304,4 +309,101 @@ def trailing_gemm_sub(a, l21, u12, ko: int, ncols: int | None = None):
     _lib.call("mpf_trailing_sub", mode, m, ncols, kk, l21.data_ptr(), l21.stride(0),
               u12.data_ptr(), u12.stride(0), c.data_ptr(), int(c_bf16), a.stride(0))
     _lib.counted_launch("trailing_sub")
+    return a
+
+
+# --------------------------------------------------------------------------
+# Kernel 11: row gather and in-place row scatter
+# --------------------------------------------------------------------------
+
+def _rows_matrix(a, name: str) -> None:
+    _lib.check(a.dim() == 2 and a.stride(1) == 1 and a.dtype in (torch.float32, torch.bfloat16),
+               f"{name}: a must be a row-major fp32 or bf16 matrix, got {a.dtype}")
+
+
+def rows_gather_plain(a, rows):
+    """Plain version of :func:`rows_gather`."""
+    _lib.counted_plain("rows_gather")
+    return a[rows.long()]
+
+
+def rows_gather(a, rows):
+    """Copy of the rows ``rows`` (any order, repeats allowed) of the fp32
+    or bf16 matrix ``a``: (len(rows), w).  The TPU kernel's multiple-of-8
+    row count is not needed.  CPU tensors take the plain version; CUDA
+    tensors launch kernel 11's gather."""
+    if not _lib.on_cuda(a, rows):
+        return rows_gather_plain(a, rows)
+    _rows_matrix(a, "rows_gather")
+    rows = rows.to(torch.int32).contiguous()
+    nr, w = rows.shape[0], a.shape[1]
+    out = torch.empty((nr, w), dtype=a.dtype, device=a.device)
+    _lib.call("mpf_rows_gather", nr, w, a.data_ptr(), a.stride(0), rows.data_ptr(),
+              out.data_ptr(), a.element_size())
+    _lib.counted_launch("rows_gather")
+    return out
+
+
+def rows_scatter_inplace_plain(a, dests, vals, self_src=None, active=None):
+    """Plain version of :func:`rows_scatter_inplace`."""
+    _lib.counted_plain("rows_scatter")
+    keep = torch.ones(dests.shape, dtype=torch.bool, device=dests.device)
+    if active is not None:
+        keep &= active.bool()
+    if self_src is not None:
+        keep &= dests.long() != self_src.long()
+    a[dests.long()[keep]] = vals[keep]
+    return a
+
+
+def rows_scatter_inplace(a, dests, vals, self_src=None, active=None):
+    """IN PLACE: ``a[dests[i], :] = vals[i, :]`` for every row i that is
+    active (``active[i]`` true; all rows when ``active`` is None) and not a
+    self-move (``dests[i] == self_src[i]``, where ``self_src`` gives each
+    value's current row; such rows already hold their value).  Among the
+    rows written, ``dests`` must be unique or repeat only with bitwise
+    identical ``vals``; ``vals`` must not overlap the rows written.
+    Returns ``a``.  CPU tensors take the plain version; CUDA tensors launch
+    kernel 11's scatter."""
+    opt = tuple(t for t in (self_src, active) if t is not None)
+    if not _lib.on_cuda(a, dests, vals, *opt):
+        return rows_scatter_inplace_plain(a, dests, vals, self_src, active)
+    _rows_matrix(a, "rows_scatter_inplace")
+    nr, w = dests.shape[0], a.shape[1]
+    _lib.check(vals.dtype == a.dtype and vals.dim() == 2 and vals.shape == (nr, w)
+               and vals.stride(1) == 1, "rows_scatter_inplace: vals must be (nr, w) row-major, "
+               "of a's dtype")
+    dests = dests.to(torch.int32).contiguous()
+    ss = None if self_src is None else self_src.to(torch.int32).contiguous()
+    act = None if active is None else active.to(torch.int32).contiguous()
+    _lib.call("mpf_rows_scatter", nr, w, a.data_ptr(), a.stride(0), dests.data_ptr(),
+              vals.data_ptr(), vals.stride(0), None if ss is None else ss.data_ptr(),
+              None if act is None else act.data_ptr(), -1, a.element_size())
+    _lib.counted_launch("rows_scatter")
+    return a
+
+
+def rows_scatter_from_band_plain(a, k, dests):
+    """Plain version of :func:`rows_scatter_from_band`."""
+    _lib.counted_plain("rows_scatter")
+    scatter_band(a, k, dests)
+    return a
+
+
+def rows_scatter_from_band(a, k: int, dests):
+    """IN PLACE: ``a[dests[i], :] = a[k + i, :]`` for every ``dests[i]``
+    outside the band ``[k, k + nr)``.  In-band destinations (self-moves
+    among them) are left to the caller's band write, as in the exchange
+    contract of :func:`mpf_tpu_torch.ops.exchange.rows_exchange`.  Returns
+    ``a``.  CPU tensors take the plain version; CUDA tensors launch kernel
+    11's scatter reading the band rows in place."""
+    if not _lib.on_cuda(a, dests):
+        return rows_scatter_from_band_plain(a, k, dests)
+    _rows_matrix(a, "rows_scatter_from_band")
+    nr, w = dests.shape[0], a.shape[1]
+    _lib.check(0 <= k and k + nr <= a.shape[0], "rows_scatter_from_band: band outside a")
+    dests = dests.to(torch.int32).contiguous()
+    _lib.call("mpf_rows_scatter", nr, w, a.data_ptr(), a.stride(0), dests.data_ptr(),
+              None, 0, None, None, int(k), a.element_size())
+    _lib.counted_launch("rows_scatter")
     return a

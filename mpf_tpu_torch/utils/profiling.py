@@ -1,20 +1,26 @@
 """Where one factorization's time goes on the card (torch.profiler).
 
     python -m mpf_tpu_torch.utils.profiling --n 16384 --corpus hpl_ai \\
-        [--policy mpf_bf16] [--no-pivot] [--runs 5] [--trace trace.json]
+        [--policy mpf_bf16] [--no-pivot] [--lookahead] [--super S] \\
+        [--xchg split] [--runs 5] [--trace trace.json]
 
 Runs one warm-up factorization, then, with ``--runs N``, N more timed with
-CUDA events on fresh copies (their median and each run), then one under
+CUDA events on fresh copies (their median, each run, each run's host issue
+time and the caching allocator's device allocations), then one under
 ``torch.profiler`` with CPU and CUDA activities, and prints one JSON line:
 wall time, summed device time by kernel name, and the device's idle share
 (1 - busy time / the span from the first device activity to the last;
-work on one stream does not overlap).  Needs a CUDA device.
+work on one stream does not overlap).  ``--lookahead`` runs the one-deep
+lookahead driver, ``--super S`` superblocks of width S, ``--xchg split``
+the split row exchange (kernel 11; the CLI sets ``MPF_XCHG``, which
+``make_mpf`` reads when it builds).  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import torch
@@ -22,8 +28,11 @@ import torch
 
 def profile_factorization(n: int, corpus: str = "hpl_ai", r: int = 128,
                           trace: str | None = None, policy: str = "mpf_bf16",
-                          pivot: bool = True, runs: int = 0) -> dict:
-    from mpf_tpu_torch import make_mpf
+                          pivot: bool = True, runs: int = 0, lookahead: bool = False,
+                          super_block="auto") -> dict:
+    """Profile one factorization; the exchange mode is the caller's
+    ``MPF_XCHG`` (:func:`mpf_tpu_torch.config.combined_exchange`)."""
+    from mpf_tpu_torch import config, make_mpf
     from mpf_tpu_torch.precision import POLICIES
     from mpf_tpu_torch.utils import matgen
     from mpf_tpu_torch.utils.timing import cuda_time
@@ -33,12 +42,29 @@ def profile_factorization(n: int, corpus: str = "hpl_ai", r: int = 128,
     gen = {"hpl_ai": matgen.hpl_ai_matrix, "uniform": matgen.random_dense}[corpus]
     pol = POLICIES[policy]
     a0 = torch.from_numpy(gen(n, seed=0)).cuda().to(pol.working)  # factored in place
-    fac = make_mpf(n, r=r, policy=pol, pivot=pivot)
+    fac = make_mpf(n, r=r, policy=pol, pivot=pivot, lookahead=lookahead,
+                   super_block=super_block)
+    xchg = "combined" if config.combined_exchange() else "split"
     fac(a0.clone())
     timed = {}
     if runs:
-        med, all_s = cuda_time(fac, a0, warmup=0, iters=runs, setup=lambda x: (x.clone(),))[:2]
-        timed = {"median_ms": med * 1e3, "runs_ms": [t * 1e3 for t in all_s]}
+        # per run: the host's time to issue the factorization (a host stall
+        # shows here, a device one only in runs_ms) and the caching
+        # allocator's cudaMalloc calls and retries over the timed runs
+        host_ms = []
+
+        def issue(x):
+            t = time.perf_counter()
+            out = fac(x)
+            host_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+        keys = ("num_device_alloc", "num_device_free", "num_alloc_retries")
+        before = torch.cuda.memory_stats()
+        med, all_s = cuda_time(issue, a0, warmup=0, iters=runs, setup=lambda x: (x.clone(),))[:2]
+        after = torch.cuda.memory_stats()
+        timed = {"median_ms": med * 1e3, "runs_ms": [t * 1e3 for t in all_s],
+                 "host_issue_ms": host_ms,
+                 "allocator": {k: after.get(k, 0) - before.get(k, 0) for k in keys}}
     work = a0.clone()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -63,7 +89,8 @@ def profile_factorization(n: int, corpus: str = "hpl_ai", r: int = 128,
     busy_ms = sum(by_kernel.values())
     span_ms = (last - first) / 1e3 if by_kernel else 0.0
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15])
-    return {"n": n, "corpus": corpus, "policy": policy, "r": r, "pivot": pivot, **timed,
+    return {"n": n, "corpus": corpus, "policy": policy, "r": r, "pivot": pivot,
+            "lookahead": lookahead, "super_block": super_block, "xchg": xchg, **timed,
             "wall_ms": wall * 1e3,
             "device_busy_ms": busy_ms, "device_span_ms": span_ms,
             "idle_share": 1.0 - busy_ms / span_ms if span_ms else None,
@@ -78,12 +105,17 @@ def main() -> None:
     ap.add_argument("--policy", default="mpf_bf16",
                     choices=("mpf_bf16", "mpf_ref", "pure_fp32", "mpf_fp16", "all_bf16"))
     ap.add_argument("--no-pivot", action="store_true")
+    ap.add_argument("--lookahead", action="store_true")
+    ap.add_argument("--super", type=int, default=None, dest="super_block")
+    ap.add_argument("--xchg", choices=("combined", "split"), default="combined")
     ap.add_argument("--runs", type=int, default=0)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
+    os.environ["MPF_XCHG"] = args.xchg
     print(json.dumps(profile_factorization(args.n, args.corpus, trace=args.trace,
                                            policy=args.policy, pivot=not args.no_pivot,
-                                           runs=args.runs)))
+                                           runs=args.runs, lookahead=args.lookahead,
+                                           super_block=args.super_block or "auto")))
 
 
 if __name__ == "__main__":

@@ -15,10 +15,13 @@ from mpf_tpu_torch import (
 from mpf_tpu_torch.ops import _lib
 from mpf_tpu_torch.ops.blas3 import _leaves, tri_inv_leaves, tri_inv_leaves_plain
 from mpf_tpu_torch.ops.exchange import rows_exchange, rows_exchange_plain
+from mpf_tpu_torch.ops.gemmx import gemm_trailing, gemm_trailing_plain
 from mpf_tpu_torch.ops.panel_fused import (
     l21_trim, l21_trim_plain, panel_apply_update_trim, panel_apply_update_trim_plain,
-    rowblock_assemble, rowblock_assemble_plain, trailing_gemm_sub, trailing_gemm_sub_plain,
-    upd_wide, upd_wide_plain)
+    rowblock_assemble, rowblock_assemble_plain, rows_gather, rows_gather_plain,
+    rows_scatter_from_band, rows_scatter_from_band_plain, rows_scatter_inplace,
+    rows_scatter_inplace_plain, trailing_gemm_sub, trailing_gemm_sub_plain, upd_wide,
+    upd_wide_plain)
 from mpf_tpu_torch.ops.panel_pallas import (
     getf2_npv_block, getf2_npv_inv_block, getf2_npv_inv_plain, hgetf2_panel_plain,
     hgetf2_panel_swaps, laswp_apply, laswp_plain)
@@ -339,3 +342,123 @@ def test_all_bf16_masked_on_card(cuda, pivot):
     assert not any(_lib.plain_calls.values())
     assert check_factorization_device(a, res.lu, res.ipiv, nbe_tol=5e-2).ok
     assert pivot or torch.equal(res.ipiv.cpu(), torch.arange(1, n + 1, dtype=torch.int32))
+
+
+def _band_perm(rng, n, k, bc):
+    """(glist, dests) of a composed exchange map: swaps band row i <-> a
+    row >= k + i, in order (swap chains bottom out in the band)."""
+    perm = np.arange(k, n)
+    for i in range(bc):
+        j = rng.integers(i, n - k)
+        perm[[i, j]] = perm[[j, i]]
+    inv = np.empty(n - k, dtype=np.int64)
+    inv[perm - k] = np.arange(n - k)
+    return (torch.from_numpy(perm[:bc].astype(np.int32)),
+            torch.from_numpy((inv[:bc] + k).astype(np.int32)))
+
+
+@pytest.mark.parametrize("dt,gd", [(torch.float32, BF), (torch.float32, torch.float32),
+                                   (BF, BF)])
+def test_gemmx_kernel(cuda, dt, gd):
+    """Kernel 13 at ragged sizes (n = 1000, r0 = 256, c0 = 392, K = 136,
+    nr = 136), each instance: bitwise equal to kernel 6 on the same region
+    followed by kernel 4, for a random band map, the identity map and a
+    band whose every row leaves.  Kernel 6's GEMM against the plain
+    version: outside the region exact, inside within 1e-6 of max |a| (fp32
+    C) or one bf16 ulp plus the fp32 sum-order bound (bf16 C).  The plain
+    version with ``xargs`` equals its GEMM followed by the plain exchange."""
+    rng = np.random.default_rng(11)
+    n, r0, c0, kk = 1000, 256, 392, 136
+    m, w = n - r0, n - c0
+    a = _hpl(n, 8, cuda).to(dt)
+    l21 = (torch.rand((m, kk), device=cuda) - 0.5).to(gd)
+    u12 = (torch.rand((kk, w), device=cuda) - 0.5).to(gd)
+    g0 = a.clone()
+    trailing_gemm_sub(g0[:, c0 - r0:], l21, u12, r0, ncols=w)
+    p0 = gemm_trailing_plain(a.clone(), l21, u12, r0, c0)
+    assert torch.equal(g0[:r0], a[:r0]) and torch.equal(g0[:, :c0], a[:, :c0])
+    if dt == BF:
+        assert within_bf16_ulp(g0[r0:, c0:], p0[r0:, c0:],
+                               sum_slack(a[r0:, c0:], l21, u12)).ok
+    else:
+        assert float((g0 - p0).abs().max() / p0.abs().max()) <= 1e-6
+    ident = torch.arange(r0, r0 + kk, dtype=torch.int32)
+    rev = torch.arange(n - 1, n - 1 - kk, -1, dtype=torch.int32)
+    for glist, dests in (_band_perm(rng, n, r0, kk), (ident, ident), (rev, rev)):
+        glist, dests = glist.to(cuda), dests.to(cuda)
+        x, y = a.clone(), g0.clone()
+        _lib.reset_counts()
+        _, pk = gemm_trailing(x, l21, u12, r0, c0, xargs=(r0, glist, dests))
+        assert _lib.launches["gemmx"] == 1 and not any(_lib.plain_calls.values())
+        py = rows_exchange(y, r0, glist, dests)
+        x[r0:r0 + kk], y[r0:r0 + kk] = pk, py
+        assert torch.equal(pk, py) and torch.equal(x, y)
+        z, zp = p0.clone(), a.clone()
+        pz = rows_exchange_plain(z, r0, glist, dests)
+        _, pzp = gemm_trailing_plain(zp, l21, u12, r0, c0, xargs=(r0, glist, dests))
+        assert torch.equal(pz, pzp) and torch.equal(z, zp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+def test_rows_kernels_exact(cuda, dtype):
+    """Kernel 11 equals its plain versions bit for bit: a gather with
+    repeats; a scatter with self-moves, inactive rows (their dests collide
+    with anything) and a duplicate destination carrying equal values; a
+    scatter from the band with in-band destinations."""
+    rng = np.random.default_rng(12)
+    n = 777
+    a = _hpl(n, 9, cuda).to(dtype)
+    rows = torch.from_numpy(rng.integers(0, n, 100).astype(np.int32)).to(cuda)
+    _lib.reset_counts()
+    assert torch.equal(rows_gather(a, rows), rows_gather_plain(a, rows))
+    dests = torch.from_numpy(rng.choice(n, 60, replace=False).astype(np.int32)).to(cuda)
+    src = torch.from_numpy(rng.choice(n, 60, replace=False).astype(np.int32)).to(cuda)
+    src[:5] = dests[:5]                               # self-moves
+    dests[10] = dests[11]
+    src[10] = src[11]                                 # duplicate, equal values
+    active = torch.ones(60, dtype=torch.bool, device=cuda)
+    active[20:25] = False
+    dests[20:25] = dests[30]                          # dropped: collide freely
+    vals = a[src.long()].clone()
+    x, y = a.clone(), a.clone()
+    rows_scatter_inplace(x, dests, vals, self_src=src, active=active)
+    rows_scatter_inplace_plain(y, dests, vals, self_src=src, active=active)
+    assert torch.equal(x, y)
+    glist, bdests = _band_perm(rng, n, 128, 64)
+    x, y = a.clone(), a.clone()
+    rows_scatter_from_band(x, 128, bdests.to(cuda))
+    rows_scatter_from_band_plain(y, 128, bdests.to(cuda))
+    assert torch.equal(x, y)
+    assert _lib.launches["rows_gather"] == 1 and _lib.launches["rows_scatter"] == 2
+
+
+@pytest.mark.parametrize("policy", [MPF_BF16, PURE_FP32, ALL_BF16])
+def test_lookahead_split_superblock_on_card(cuda, policy, monkeypatch):
+    """n = 2048, block 512: lookahead launches kernel 13 twice (block
+    columns 0 and 1; column 2's wide part is empty) and kernel 4 twice, with
+    the pivots and row map of the classic loop on the card, LU within the
+    oracle bound times max |LU| (tests/test_lookahead.py's bar: the narrow
+    and wide U12 are cuBLAS products of other shapes) and the device
+    oracle; MPF_XCHG=split is bitwise the combined route with kernel 11 and no
+    kernel 4; superblock S = 1024 passes the device oracle."""
+    n = 2048
+    a = _hpl(n, 10, cuda)
+    tol = 5e-2 if policy is ALL_BF16 else (1e-3 if policy is MPF_BF16 else 1e-5)
+    classic = mpf_factorize(a, r=128, policy=policy, block=512)
+    _lib.reset_counts()
+    la = mpf_factorize(a, r=128, policy=policy, block=512, lookahead=True)
+    assert _lib.launches["gemmx"] == 2 and _lib.launches["rows_exchange"] == 2
+    assert _lib.launches["trailing_sub"] == 3 and not any(_lib.plain_calls.values())
+    assert torch.equal(la.ipiv, classic.ipiv) and torch.equal(la.perm, classic.perm)
+    d = float((la.lu.float() - classic.lu.float()).abs().max())
+    assert d <= tol * float(classic.lu.float().abs().max()), d
+    assert check_factorization_device(a, la.lu, la.ipiv, nbe_tol=tol).ok
+    monkeypatch.setenv("MPF_XCHG", "split")
+    _lib.reset_counts()
+    sp = mpf_factorize(a, r=128, policy=policy, block=512)
+    monkeypatch.delenv("MPF_XCHG")
+    assert _lib.launches["rows_gather"] == _lib.launches["rows_scatter"] == 4
+    assert _lib.launches["rows_exchange"] == 0
+    assert torch.equal(sp.lu, classic.lu) and torch.equal(sp.perm, classic.perm)
+    sb = mpf_factorize(a, r=128, policy=policy, block=512, super_block=1024)
+    assert check_factorization_device(a, sb.lu, sb.ipiv, nbe_tol=tol).ok

@@ -142,14 +142,33 @@ def test_auto_block():
 
 
 @pytest.mark.parametrize("kwargs,what", [
-    (dict(lookahead=True), "lookahead"),
     (dict(defer=2), "defer"),
-    (dict(super_block=256), "super_block"),
 ])
 def test_outside_the_slice_raises(kwargs, what):
     a = torch.eye(96)
     with pytest.raises(NotImplementedError, match=what):
         T.mpf_factorize(a, **{"r": 8, **kwargs})
+
+
+@pytest.mark.parametrize("kwargs,kernel", [
+    (dict(lookahead=True), "gemmx"),
+    (dict(super_block=256), "tri_inv"),
+])
+def test_lookahead_and_superblock_run(kwargs, kernel):
+    """``lookahead`` and ``super_block`` are ported: on the HPL-AI matrix
+    (n = 512, r = 32, block 128) each factors with the classic loop's
+    pivots, passes the oracle at 1e-3, and runs its own work (kernel 13;
+    kernel 5 once for each of the two mid updates with columns left and
+    once for each of the far update's two inner blocks: 4 against the
+    classic loop's 3)."""
+    n = 512
+    a = matgen.hpl_ai_matrix(n, seed=15).astype(np.float32)
+    ref = T.mpf_factorize(torch.from_numpy(a), r=32, block=128)
+    _lib.reset_counts()
+    res = T.mpf_factorize(torch.from_numpy(a), r=32, block=128, **kwargs)
+    assert _lib.plain_calls[kernel] == {"gemmx": 2, "tri_inv": 4}[kernel]
+    assert torch.equal(res.ipiv, ref.ipiv) and torch.equal(res.perm, ref.perm)
+    assert check_factorization(a, res.lu.numpy(), res.ipiv.numpy(), nbe_tol=1e-3).ok
 
 
 def test_policy_working_dtype_checked():
