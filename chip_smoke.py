@@ -56,7 +56,22 @@ Phases, one line each:
   6c. MPF_XCHG=split (kernel 11 in place of kernel 4): factors, pivots and
      row map bitwise equal to phase 3's, launch counts, median of 3;
   6d. superblock S = 4096 at n = 16384 on both matrices: the launch counts
-     of its mid and far updates, oracle, median of 3.
+     of its mid and far updates, oracle, median of 3;
+  2e. (run after 2d) kernel 14 at the deferred exchange's shapes (n =
+     16384, S = 8, block 1024): the band copy of 1024 rows and a flush of
+     8192 overflow slots with 4096 live rows, fp32 and bf16, bitwise equal
+     to their plain versions; kernel 10 (tests only) on the uniform slab's
+     panels at jj0 = 0 and 384, m = 16384, bc = 1024, r = 128, each
+     instance (fp32 slab with bf16 or fp32 update operands, bf16 slab) held
+     as phases 2 and 2c hold kernels 3 and 12, frozen rows and the columns
+     left of the panel exact;
+  7. the deferred exchange, defer = 8 under MPF_BF16 at n = 16384 on both
+     matrices: factors, pivots and row map bitwise equal to phase 3's, the
+     exact launch counts (16 band copies, 2 flushes), oracle, median of 3;
+  7b. defer = 8 under ALL_BF16 at n = 65536 on HPL-AI through the
+     pre-extended (n + 8192, n) input made on the card: one timed run beside
+     5b's, pivots and row map equal to 5b's, launch counts, oracle, peak
+     memory.
 Then the card's name and power limit, one JSON line of per-kernel results
 (times, errors against the plain version, launches in the main path's run,
 the least time the card could take and the time of a PyTorch call that
@@ -95,11 +110,13 @@ FUSED_BF16 = ("strip_pivots", "rowblock", "l21_trim", "upd_wide", "rows_exchange
               "tri_inv", "trailing_sub")
 MASKED_BF16 = ("tri_inv", "trailing_sub", "hgetf2", "laswp")
 SPLIT = ("rows_gather", "rows_scatter")  # kernel 11, MPF_XCHG=split
+DEFER = ("copy_rows", "flush_overflow")  # kernel 14, the deferred exchange
+DEFER_S = 8                              # its group size in phases 7 and 7b
 BF = torch.bfloat16
 
 
 def fused_counts(n: int, r: int, bc: int, bf16: bool = False, lookahead: bool = False,
-                 split: bool = False, super_cols: int = 0) -> dict:
+                 split: bool = False, super_cols: int = 0, defer_s: int = 0) -> dict:
     """Launches of one fused factorization of an n x n matrix, stated from
     the algorithm: every panel runs kernels 1 and 2 and B (kernel 3; under
     ALL_BF16 kernel 12's L21 pass, and its update pass on every panel but
@@ -112,7 +129,10 @@ def fused_counts(n: int, r: int, bc: int, bf16: bool = False, lookahead: bool = 
     Superblock of ``super_cols`` block columns: a mid update with no
     columns left is skipped (one a superblock, the last one's is the end of
     the matrix), and each superblock but the last adds a far update (one
-    kernel 6, one kernel 5 per block column of it)."""
+    kernel 6, one kernel 5 per block column of it).  Deferred exchange in
+    groups of ``defer_s`` block columns: kernel 4 still runs in every block
+    column (its eager part), kernel 14's band copy in every block column and
+    its flush once a group."""
     panels, cols = n // r, n // bc
     c = {"strip_pivots": panels, "rowblock": panels, "rows_exchange": cols,
          "tri_inv": cols - 1, "trailing_sub": cols - 1}
@@ -128,6 +148,8 @@ def fused_counts(n: int, r: int, bc: int, bf16: bool = False, lookahead: bool = 
         supers = cols // super_cols
         mid = cols - 1 - (supers - 1)
         c.update(trailing_sub=mid + supers - 1, tri_inv=mid + (supers - 1) * super_cols)
+    if defer_s:
+        c.update(copy_rows=cols, flush_overflow=-(-cols // defer_s))
     return c
 
 
@@ -191,10 +213,13 @@ def main() -> int:
     import mpf_tpu_torch as T
     from mpf_tpu_torch.ops import _lib
     from mpf_tpu_torch.ops.blas3 import _leaves, tri_inv_leaves, tri_inv_leaves_plain
-    from mpf_tpu_torch.ops.exchange import rows_exchange, rows_exchange_plain
+    from mpf_tpu_torch.ops.exchange import (
+        copy_rows_block, copy_rows_block_plain, flush_overflow, flush_overflow_plain,
+        rows_exchange, rows_exchange_plain)
     from mpf_tpu_torch.ops.gemmx import gemm_trailing, gemm_trailing_plain
     from mpf_tpu_torch.ops.panel_fused import (
-        l21_trim, l21_trim_plain, panel_apply_update_trim, panel_apply_update_trim_plain,
+        l21_trim, l21_trim_plain, panel_apply_update, panel_apply_update_plain,
+        panel_apply_update_trim, panel_apply_update_trim_plain,
         rowblock_assemble, rowblock_assemble_plain, rows_gather, rows_gather_plain,
         rows_scatter_from_band, rows_scatter_from_band_plain, rows_scatter_inplace,
         rows_scatter_inplace_plain, trailing_gemm_sub, trailing_gemm_sub_plain, upd_wide,
@@ -202,7 +227,8 @@ def main() -> int:
     from mpf_tpu_torch.ops.panel_pallas import (
         getf2_npv_block, getf2_npv_inv_block, getf2_npv_inv_plain, hgetf2_panel_plain,
         hgetf2_panel_swaps, laswp_apply, laswp_plain)
-    from mpf_tpu_torch.ops.panel_strip import strip_panel_pivots, strip_panel_pivots_plain
+    from mpf_tpu_torch.ops.panel_strip import (
+        SENT, strip_panel_pivots, strip_panel_pivots_plain)
     from mpf_tpu_torch.precision import cast_to_panel
     from mpf_tpu_torch.utils import matgen
     from mpf_tpu_torch.utils.oracle import (
@@ -241,6 +267,9 @@ def main() -> int:
         "rows_gather": "mpf_tpu/ops/panel_fused.py:394",
         "rows_scatter": "mpf_tpu/ops/panel_fused.py:582",
         "gemmx": "mpf_tpu/ops/gemmx.py:627",
+        "copy_rows": "mpf_tpu/ops/exchange.py:676",
+        "flush_overflow": "mpf_tpu/ops/exchange.py:432",
+        "panel_update_full": "mpf_tpu/ops/panel_fused.py:286",
     }
     source = {
         "strip_pivots": "mpf_tpu_torch/csrc/strip_pivots.cu",
@@ -258,6 +287,9 @@ def main() -> int:
         "rows_gather": "mpf_tpu_torch/csrc/rows.cu",
         "rows_scatter": "mpf_tpu_torch/csrc/rows.cu",
         "gemmx": "mpf_tpu_torch/csrc/gemmx.cu",
+        "copy_rows": "mpf_tpu_torch/csrc/overflow.cu",
+        "flush_overflow": "mpf_tpu_torch/csrc/overflow.cu",
+        "panel_update_full": "mpf_tpu_torch/csrc/panel_update_full.cu",
     }
 
     def record(name, abs_err, rel_err, ms, plain_ms, bnd, library_ms, **extra):
@@ -911,6 +943,154 @@ def main() -> int:
     del hpl_b
     torch.cuda.empty_cache()
 
+    # ---------------- phase 2e: kernels 14 and 10 vs plain ----------------
+    # #14 at the deferred driver's shapes (S = 8, block 1024: 8192 overflow
+    # slots below n = 16384 rows): block column 1's band copied to slot 3,
+    # and a flush of every slot, 4096 live with distinct destinations and
+    # the rest dead (the sentinel); bitwise
+    ov = DEFER_S * bc
+    live_n = 4096
+    grng = np.random.default_rng(17)
+    live_slots = grng.choice(ov, live_n, replace=False)
+    dests_np = np.full(ov, SENT, np.int32)
+    dests_np[live_slots] = grng.choice(n, live_n, replace=False)
+    dests14 = torch.from_numpy(dests_np).to(dev)
+    lib_src = torch.from_numpy(live_slots.astype(np.int64) + n).to(dev)
+    lib_dst = dests14[lib_src - n].long()
+    dst0 = n + 3 * bc
+    for dt in (torch.float32, BF):
+        tag = str(dt)[6:]
+        x = torch.empty((n + ov, n), dtype=dt, device=dev)
+        x[:n] = hpl
+        x[n:] = -hpl[:ov]
+        y = x.clone()
+        _lib.reset_counts()
+        copy_rows_block(x, bc, dst0, bc)
+        copy_rows_block_plain(y, bc, dst0, bc)
+        ok_c = torch.equal(x, y)
+        flush_overflow(x, n, dests14)
+        flush_overflow_plain(y, n, dests14)
+        ok_f = torch.equal(x, y)
+        launched14 = [_lib.launches[k] for k in DEFER]
+        phase(f"k14_{tag}", ok_c and ok_f and launched14 == [1, 1], copy_rows_exact=ok_c,
+              flush_exact=ok_f, slots=ov, live_rows=live_n)
+        err14 = 0.0 if ok_c and ok_f else absd(x, y)
+        el = x.element_size()
+        ms_c = event_ms(lambda: copy_rows_block(x, bc, dst0, bc))
+        pms_c = event_ms(lambda: copy_rows_block_plain(y, bc, dst0, bc))
+        band_v, slot_v = y[bc:2 * bc], y[dst0:dst0 + bc]
+        lib_c = library(lambda: slot_v.copy_(band_v))
+        ms_f = event_ms(lambda: flush_overflow(x, n, dests14))
+        pms_f = event_ms(lambda: flush_overflow_plain(y, n, dests14))
+        lib_f = library(lambda: y.index_copy_(0, lib_dst, y.index_select(0, lib_src)))
+        # the band read and the slots written; the live rows read and
+        # written and the slots' destinations read
+        b_c, b_f = bound(2 * el * bc * n), bound(2 * el * live_n * n + 4 * ov)
+        if dt == torch.float32:
+            record("copy_rows", err14, 0.0, ms_c, pms_c, b_c, lib_c)
+            record("flush_overflow", err14, 0.0, ms_f, pms_f, b_f, lib_f, slots=ov,
+                   live_rows=live_n)
+        else:
+            record_bf16("copy_rows", err14, ms_c, pms_c, b_c, lib_c)
+            record_bf16("flush_overflow", err14, ms_f, pms_f, b_f, lib_f)
+        print(f"[INFO] k14 {tag}: copy_rows {ms_c:.4f} ms (bound {b_c[0]:.4f}, copy_ "
+              f"{lib_c}), flush {ms_f:.4f} ms (bound {b_f[0]:.4f}, index_select + "
+              f"index_copy_ {lib_f})", flush=True)
+        del x, y, band_v, slot_v
+        torch.cuda.empty_cache()
+    del dests14, lib_src, lib_dst
+
+    # #10 (on no driver path) at the fused path's B shapes, m = 16384, bc =
+    # 1024, r = 128, on the uniform slab's panels at jj0 = 0 and 384: L21
+    # against the plain version (fp32 slabs 1e-5 relative, bf16 one ulp);
+    # the update against the product of the kernel's own L21 (fp32 slabs:
+    # in fp64, past the half ulp of the stored result, 1e-5 relative; bf16:
+    # one ulp plus sum_slack); frozen rows and the columns left of the
+    # panel exact.  The fp32-operand instance is also compared with kernel 3
+    # (whose L21 pass and FFMA tile sum in the same order)
+    uni_b = uni.to(BF)
+    ms10 = {}
+    err10 = {}
+    for inst, slab, gbf in (("fp32_bf16_update", uni, True), ("fp32", uni, False),
+                            ("bf16", uni_b, False)):
+        for jj0 in (0, 384):
+            c0 = jj0 + r
+            _, pos1, glist1 = strip_panel_pivots(slab, jj0, pos0, BF, jj0, r)
+            rb_p, ui_p, _ = rowblock_assemble_plain(slab, glist1, jj0)
+            below = pos1 >= c0
+            s_k, s_p = slab.clone(), slab.clone()
+            _lib.reset_counts()
+            panel_apply_update(s_k, pos1, rb_p, ui_p, jj0, jj0, gbf)
+            one_launch = _lib.launches["panel_update_full"] == 1
+            panel_apply_update_plain(s_p, pos1, rb_p, ui_p, jj0, jj0, gbf)
+            untouched = (torch.equal(s_k[~below], slab[~below])
+                         and torch.equal(s_k[:, :jj0], slab[:, :jj0]))
+            fields = {}
+            if inst == "bf16":
+                ok_l21 = within_bf16_ulp(s_k[:, jj0:c0], s_p[:, jj0:c0]).ok
+                l21m = torch.where(below[:, None], s_k[:, jj0:c0], 0.0).to(BF)
+                ref = slab[:, c0:].float() - l21m.float() @ rb_p[:, c0:].float()
+                ref = torch.where(below[:, None], ref.to(BF), slab[:, c0:])
+                rep10 = within_bf16_ulp(s_k[:, c0:], ref, sum_slack(slab[:, c0:], l21m,
+                                                                    rb_p[:, c0:]))
+                ok = ok_l21 and rep10.ok
+                fields = dict(l21_within_one_bf16_ulp=ok_l21,
+                              update_within_ulp_and_sum_order=rep10.ok,
+                              slack_used=f"{rep10.slack_used:.4f}")
+                del l21m, ref
+            else:
+                l21_k = s_k[below, jj0:c0]
+                e_l21 = rel(l21_k, s_p[below, jj0:c0])
+                u12 = rb_p[:, c0:]
+                if gbf:
+                    ref = l21_k.to(BF).double() @ u12.to(BF).double()
+                else:
+                    ref = l21_k.double() @ u12.double()
+                after = s_k[below, c0:]
+                mag = after.abs()
+                half_ulp = (torch.nextafter(mag, torch.full_like(mag, float("inf")))
+                            - mag).double() / 2
+                upd_k = slab[below, c0:].double() - after.double()
+                e_upd = float(((upd_k - ref).abs() - half_ulp).clamp_min(0).max()
+                              / ref.abs().max())
+                ok = e_l21 <= 1e-5 and e_upd <= 1e-5
+                fields = dict(rel_err_l21=f"{e_l21:.3e}", rel_err_update=f"{e_upd:.3e}")
+                if not gbf:
+                    s_3 = slab.clone()
+                    panel_apply_update_trim(s_3, pos1, rb_p, ui_p, jj0, jj0, False)
+                    fields["bitwise_kernel3"] = torch.equal(s_k, s_3)
+                    del s_3
+                del l21_k, ref, after, mag, half_ulp, upd_k
+            err10[inst] = max(err10.get(inst, 0.0), absd(s_k, s_p))
+            phase(f"k10_{inst}_jj0={jj0}", ok and untouched and one_launch,
+                  frozen_rows_and_left_exact=untouched, **fields)
+            if jj0 == 0:
+                s_t = slab.clone()
+                ms10[inst] = (event_ms(lambda: panel_apply_update(s_t, pos1, rb_p, ui_p, 0, 0,
+                                                                  gbf)),
+                              event_ms(lambda: panel_apply_update_plain(s_t, pos1, rb_p, ui_p,
+                                                                        0, 0, gbf)))
+                del s_t
+            del s_k, s_p
+    # at jj0 = 0: the slab read and written, the row block, U^-1 and the
+    # positions read; L21 2 m r^2 fp32 (bf16 operands on a bf16 slab), the
+    # update 2 m r (bc - r) on the update's operand type
+    ops_l21, ops_upd = 2 * n * r * r, 2 * n * r * (bc - r)
+    b10 = {"fp32_bf16_update": bound(8 * n * bc + 4 * r * bc + 4 * r * r + 4 * n, ops_l21,
+                                     ops_upd),
+           "fp32": bound(8 * n * bc + 4 * r * bc + 4 * r * r + 4 * n, ops_l21 + ops_upd),
+           "bf16": bound(4 * n * bc + 2 * r * bc + 2 * r * r + 4 * n, 0, ops_l21 + ops_upd)}
+    for inst in ms10:
+        print(f"[INFO] k10 {inst}: {ms10[inst][0]:.4f} ms, plain {ms10[inst][1]:.4f} ms, "
+              f"bound {b10[inst][0]:.4f} ms ({b10[inst][1]})", flush=True)
+    record("panel_update_full", err10["fp32_bf16_update"],
+           err10["fp32_bf16_update"] / float(uni.abs().max()), *ms10["fp32_bf16_update"],
+           b10["fp32_bf16_update"], None, fp32_ms=ms10["fp32"][0],
+           fp32_plain_ms=ms10["fp32"][1], fp32_bound_ms=b10["fp32"][0],
+           fp32_bound_by=b10["fp32"][1], fp32_max_abs_err=err10["fp32"])
+    record_bf16("panel_update_full", err10["bf16"], *ms10["bf16"], b10["bf16"], None)
+    del uni_b
+
     del hpl, slab0, uni, dyp, p16
     torch.cuda.empty_cache()
 
@@ -1095,6 +1275,7 @@ def main() -> int:
     counters_ok = (not any(_lib.plain_calls.values())
                    and all(launched[k] == want5b.get(k, 0) for k in _lib.KERNELS))
     lu, ipiv, info = res.lu, res.ipiv, int(res.info)
+    perm5b = res.perm                # 5b's pivots and row map, the reference of 7b
     finite = bool(torch.isfinite(lu).all())
     del res
     torch.cuda.empty_cache()
@@ -1139,7 +1320,47 @@ def main() -> int:
           ms=f"{la_ms:.2f}", classic_5b_ms=f"{big_ms:.2f}",
           tflops=f"{tflops(nb, la_ms / 1e3):.2f}", resident_gib_before=f"{resident / 2**30:.2f}",
           peak_gib_factorization=f"{la_peak / 2**30:.2f}", card=f"'{smi}'")
-    del big_a, work, lu, ipiv, res
+    del big_a, work, lu, res
+    torch.cuda.empty_cache()
+
+    # ---------------- phase 7b: deferred ALL_BF16 at n = 65536 -------------
+    # the pre-extended input made on the card: its first n rows are 5b's
+    # matrix bit for bit, so 5b's pivots and row map are the reference
+    ov7 = DEFER_S * bc
+    t1 = time.perf_counter()
+    ext = matgen.hpl_ai_matrix_device(nb, seed=0, dtype=BF, device=dev, ext_rows=ov7)
+    big_a = ext[:nb].clone()                  # the oracle's A
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t1
+    fac7b = T.make_mpf(nb, r=r, policy=T.ALL_BF16, defer=DEFER_S)
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_counts()
+    start.record()
+    res = fac7b(ext)
+    end.record()
+    end.synchronize()
+    d_ms = start.elapsed_time(end)
+    d_peak = torch.cuda.max_memory_allocated()
+    launched = dict(_lib.launches)
+    want7b = fused_counts(nb, r, bc, bf16=True, defer_s=DEFER_S)
+    counters_ok = (not any(_lib.plain_calls.values())
+                   and all(launched[k] == want7b.get(k, 0) for k in _lib.KERNELS))
+    in_place = res.lu.data_ptr() == ext.data_ptr()
+    same_piv = torch.equal(res.ipiv, ipiv) and torch.equal(res.perm, perm5b)
+    info = int(res.info)
+    finite = bool(torch.isfinite(res.lu).all())
+    rep7b = check_factorization_device(big_a, res.lu, res.ipiv, nbe_tol=NBE_TOL_BF16, chunk=2048)
+    phase("defer_all_bf16_n65536_hpl_ai",
+          rep7b.ok and counters_ok and finite and info == 0 and same_piv and in_place,
+          n=nb, policy="all_bf16", r=r, defer=DEFER_S, overflow_rows=ov7,
+          nbe=f"{rep7b.normwise_backward_err:.3e}", info=info, pivots_and_perm_equal_5b=same_piv,
+          pre_extended_in_place=in_place, launches=json.dumps(launched, separators=(",", ":")),
+          ms=f"{d_ms:.2f}", classic_5b_ms=f"{big_ms:.2f}",
+          tflops=f"{tflops(nb, d_ms / 1e3):.2f}", generate_s=f"{gen_s:.2f}",
+          resident_gib_before=f"{resident / 2**30:.2f}",
+          peak_gib_factorization=f"{d_peak / 2**30:.2f}", card=f"'{smi}'")
+    del ext, big_a, res, ipiv, perm5b
     torch.cuda.empty_cache()
 
     # ---------------- phases 5c, 5d: ALL_BF16 off the fused path -----------
@@ -1239,22 +1460,35 @@ def main() -> int:
     for corpus, gen in corpora:
         variant_run("superblock_4096_mpf_bf16", fac6d, T.MPF_BF16, corpus, gen, want6d,
                     NBE_TOL, classic[corpus], bf16_policy_ms[corpus], same_pivots=False)
+    # 7: the deferred exchange, S = 8 (two groups): bitwise the classic
+    # loop's result, the band copy in every block column and one flush a group
+    fac7 = T.make_mpf(n, r=r, policy=T.MPF_BF16, defer=DEFER_S)
+    want7 = fused_counts(n, r, bc, defer_s=DEFER_S)
+    defer_counts = None
+    for corpus, gen in corpora:
+        cnt = variant_run("defer_8_mpf_bf16", fac7, T.MPF_BF16, corpus, gen, want7, NBE_TOL,
+                          classic[corpus], bf16_policy_ms[corpus], same_pivots=True,
+                          bitwise=True)
+        defer_counts = defer_counts or cnt
     del classic, classic_bf16
     torch.cuda.empty_cache()
 
     for name in _lib.KERNELS:
         counts = (main_counts if name in FUSED else masked_counts if name in MASKED
                   else lookahead_counts if name == "gemmx"
-                  else split_counts if name in SPLIT else bf16_counts)
+                  else split_counts if name in SPLIT else defer_counts if name in DEFER
+                  else bf16_counts)
         kern[name]["launches"] = int(counts[name])
         if name in FUSED and name in MASKED:
             kern[name]["launches_masked"] = int(masked_counts[name])
         if name in FUSED_BF16 and name in FUSED + MASKED:
             kern[name]["launches_all_bf16"] = int(bf16_counts[name])
         paths = [p for p, ks in (("fused", FUSED), ("masked", MASKED), ("all_bf16", FUSED_BF16),
-                                 ("lookahead", ("gemmx",)), ("split_exchange", SPLIT))
+                                 ("lookahead", ("gemmx",)), ("split_exchange", SPLIT),
+                                 ("deferred_exchange", DEFER))
                  if name in ks]
-        kern[name]["path"] = "+".join(paths) if paths else "none (distributed path)"
+        kern[name]["path"] = "+".join(paths) if paths else (
+            "none (tests only)" if name == "panel_update_full" else "none (distributed path)")
     print(f"[INFO] wall_s={time.perf_counter() - wall0:.1f}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": [kern[k] for k in _lib.KERNELS]}), flush=True)

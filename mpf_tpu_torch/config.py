@@ -8,8 +8,11 @@ and the env reads of `mpf_tpu/models/mpf.py:_resolve_super` and
   driver; anything else (default ``auto``) does not.
 * ``MPF_SUPER`` — :func:`super_block`: superblock width (``0``/``none``
   disables, ``auto`` is disabled).
-* ``MPF_DEFER`` — :func:`resolve_defer`: the deferred-overflow exchange is
-  not ported; asking for a group size S > 0 raises.
+* ``MPF_DEFER`` — :func:`resolve_defer`: the deferred-overflow exchange's
+  group size S (``0`` off, ``auto``, or an int); ``defer=True`` takes
+  ``MPF_DEFER_S`` (default 8), ``auto`` takes ``MPF_DEFER_AUTO_S`` (unset:
+  off), which the driver keeps only where :func:`defer_is_auto` lets its
+  size rule decide (`models/mpf.py:_resolve_defer`).
 
 An explicit argument wins over its env knob (for ``super_block`` the
 default ``"auto"`` defers to ``MPF_SUPER``; the JAX package lets
@@ -52,21 +55,32 @@ def super_block(explicit="auto") -> int | None:
     return int(env)
 
 
-def resolve_defer(defer=None, pivot: bool = True) -> int:
-    """The deferred-exchange group size, which is always 0 here: raises
-    ``NotImplementedError`` where a group size S > 0 is asked for
-    (``defer=S``, ``defer=True`` with ``MPF_DEFER_S``, default 8, or
-    ``defer=None`` with ``MPF_DEFER=<int>``), as the JAX package would then
-    start its deferred driver.  ``auto``, ``0``, ``False`` and
-    ``pivot=False`` resolve to 0, as there."""
+def _defer_value(defer):
     if defer is None:
         env = os.environ.get("MPF_DEFER", "auto")
         defer = {"0": False, "auto": "auto"}.get(env, env)
-    if defer is False or defer == "auto" or not pivot:
+    return defer
+
+
+def defer_is_auto(defer=None) -> bool:
+    """True when ``defer`` (or, for None, ``MPF_DEFER``) is ``auto``."""
+    return _defer_value(defer) == "auto"
+
+
+def resolve_defer(defer=None, pivot: bool = True) -> int:
+    """The requested deferred-exchange group size S before the driver's
+    shape checks, or 0 (off), as `mpf_tpu/models/mpf.py:859-907` reads it:
+    ``defer=S``; ``defer=True``: ``MPF_DEFER_S`` (default 8);
+    ``defer=None``: ``MPF_DEFER`` (``0`` off, ``auto``, or an int S);
+    ``auto``: ``MPF_DEFER_AUTO_S`` (unset: 0).  ``False``, ``0`` and
+    ``pivot=False`` resolve to 0."""
+    defer = _defer_value(defer)
+    if defer is False or not pivot:
         return 0
-    s = int(os.environ.get("MPF_DEFER_S", "8")) if defer is True else int(defer)
-    if s > 0:
-        raise NotImplementedError(
-            f"defer (deferred-overflow exchange, group size {s}) is not ported to "
-            "mpf_tpu_torch yet (ROADMAP.md: Queue 1, deferred exchange)")
-    return 0
+    if defer == "auto":
+        s = int(os.environ.get("MPF_DEFER_AUTO_S") or 0)
+    elif defer is True:
+        s = int(os.environ.get("MPF_DEFER_S", "8"))
+    else:
+        s = int(defer)
+    return max(s, 0)

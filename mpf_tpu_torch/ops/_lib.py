@@ -39,8 +39,9 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 #: The kernels, one wrapper each: 1-6 carry the fused path (12 in place of
 #: 3 for bf16 slabs, ALL_BF16; 11 in place of 4 under ``MPF_XCHG=split``;
-#: 13 for the lookahead driver's wide update), 5-9 the masked path (8b is
-#: kernel 8 without the inverses, for callers that need only the LU).
+#: 13 for the lookahead driver's wide update; 14 for the deferred-overflow
+#: exchange), 5-9 the masked path (8b is kernel 8 without the inverses, for
+#: callers that need only the LU); 10 is on no driver path (tests only).
 KERNELS = (
     "strip_pivots",   # 1  A1 pivot search
     "rowblock",       # 2  A2 row-block assembly
@@ -57,6 +58,9 @@ KERNELS = (
     "rows_gather",    # 11 gather of arbitrary rows
     "rows_scatter",   # 11 in-place row scatter (from values or from the band)
     "gemmx",          # 13 trailing GEMM with the next row exchange inside it
+    "copy_rows",      # 14 band -> overflow row-block copy
+    "flush_overflow", # 14 overflow rows to their homes
+    "panel_update_full",  # 10 B over the full slab width, one launch
 )
 
 launches = {k: 0 for k in KERNELS}
@@ -81,6 +85,9 @@ _SIGS = {
     "mpf_rows_gather": [I, I, P, L, P, P, I, P],
     "mpf_rows_scatter": [I, I, P, L, P, P, L, P, P, I, I, P],
     "mpf_gemmx": [I, I, I, I, P, L, P, L, P, I, L, I, I, I, I, I, P, P, P, P],
+    "mpf_copy_rows": [I, I, P, L, I, I, I, P],
+    "mpf_flush_overflow": [I, I, P, L, I, P, I, P],
+    "mpf_panel_update_full": [I, I, I, P, L, I, P, I, P, P, I, I, P],
     "mpf_error_string": [I],
 }
 _RESTYPES = {"mpf_error_string": ctypes.c_char_p, "mpf_hgetf2_work_bytes": L}

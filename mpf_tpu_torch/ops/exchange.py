@@ -1,5 +1,8 @@
-"""Bounded row exchange, once per block column (port of
-`mpf_tpu/ops/exchange.py:rows_exchange`; kernel 4, ``csrc/exchange.cu``).
+"""Row exchanges (port of `mpf_tpu/ops/exchange.py`): the bounded row
+exchange once per block column (:func:`rows_exchange`, kernel 4,
+``csrc/exchange.cu``) and the deferred-overflow exchange's band copy and
+flush (:func:`copy_rows_block`, :func:`flush_overflow`, kernel 14,
+``csrc/overflow.cu``).
 
 The composed row map of a block column is a permutation whose swap chains
 bottom out in the band [k, k + nr): every row moving INTO the band is a
@@ -61,3 +64,65 @@ def rows_exchange(a: torch.Tensor, k: int, glist: torch.Tensor,
               glist.data_ptr(), dests.data_ptr(), pivrows.data_ptr(), a.element_size())
     _lib.counted_launch("rows_exchange")
     return pivrows
+
+
+def _raw_rows(a: torch.Tensor, name: str) -> None:
+    _lib.check(a.dtype in (torch.float32, torch.bfloat16) and a.dim() == 2
+               and a.is_contiguous(), f"{name}: a must be a contiguous fp32 or bf16 matrix")
+
+
+def copy_rows_block_plain(a: torch.Tensor, src: int, dst: int, nrows: int) -> torch.Tensor:
+    """Plain version of :func:`copy_rows_block`."""
+    _lib.counted_plain("copy_rows")
+    a[dst:dst + nrows] = a[src:src + nrows]
+    return a
+
+
+def copy_rows_block(a: torch.Tensor, src: int, dst: int, nrows: int) -> torch.Tensor:
+    """IN PLACE: ``a[dst:dst+nrows] = a[src:src+nrows]``, the two ranges
+    not overlapping (the deferred exchange's band -> overflow append).
+    Rows of the fp32 or bf16 ``a`` are copied as they are.  Returns ``a``.
+    CPU tensors take the plain version; CUDA tensors launch kernel 14's
+    row copy."""
+    _lib.check(0 <= src and 0 <= dst and max(src, dst) + nrows <= a.shape[0]
+               and (src + nrows <= dst or dst + nrows <= src),
+               "copy_rows_block: ranges must lie in a and not overlap")
+    if not _lib.on_cuda(a):
+        return copy_rows_block_plain(a, src, dst, nrows)
+    _raw_rows(a, "copy_rows_block")
+    _lib.call("mpf_copy_rows", int(nrows), a.shape[1], a.data_ptr(), a.stride(0), int(src),
+              int(dst), a.element_size())
+    _lib.counted_launch("copy_rows")
+    return a
+
+
+def flush_overflow_plain(a: torch.Tensor, novstart: int, dests: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`flush_overflow`."""
+    _lib.counted_plain("flush_overflow")
+    slots = torch.arange(novstart, novstart + dests.shape[0], device=a.device)
+    d = dests.long()
+    # a dead slot rewrites its own row with its own value (no boolean
+    # indexing, so no host sync)
+    a[torch.where(d < novstart, d, slots)] = a[slots].clone()
+    return a
+
+
+def flush_overflow(a: torch.Tensor, novstart: int, dests: torch.Tensor) -> torch.Tensor:
+    """IN PLACE: ``a[dests[i]] = a[novstart + i]`` for every live slot i
+    (``dests[i] < novstart``); dead slots carry ``2**31 - 1`` and are
+    dropped.  Live destinations must be pairwise distinct.  Rows of the
+    fp32 or bf16 ``a`` are copied as they are.  Returns ``a``.
+
+    CPU tensors take the plain version; CUDA tensors launch kernel 14's
+    flush (one block per slot)."""
+    nov = dests.shape[0]
+    _lib.check(0 <= novstart and novstart + nov <= a.shape[0],
+               "flush_overflow: overflow slots outside a")
+    if not _lib.on_cuda(a, dests):
+        return flush_overflow_plain(a, novstart, dests)
+    _raw_rows(a, "flush_overflow")
+    dests = dests.to(torch.int32).contiguous()
+    _lib.call("mpf_flush_overflow", nov, a.shape[1], a.data_ptr(), a.stride(0), int(novstart),
+              dests.data_ptr(), a.element_size())
+    _lib.counted_launch("flush_overflow")
+    return a

@@ -9,6 +9,9 @@
   (``csrc/panel_update.cu``), bf16 slabs through kernel 12's two passes,
   :func:`l21_trim` and :func:`upd_wide` (``csrc/l21_trim.cu``), as the JAX
   package routes them by working dtype.
+* :func:`panel_apply_update` (kernel 10, ``csrc/panel_update_full.cu``) —
+  the same function in one pass over the full slab width, for fp32 and
+  bf16 slabs (the JAX package's untrimmed form; tests only).
 * :func:`trailing_gemm_sub` (kernel 6, ``csrc/gemm_sub.cu``) — the trailing
   update A[e:, e:e+w] -= L21 U12 in place, fp32 accumulation.
 * :func:`rows_gather`, :func:`rows_scatter_inplace`,
@@ -187,6 +190,69 @@ def panel_apply_update_trim(slab, pos, rowblock, uinv, j0: int, jj0: int,
               int(jj0), pos.data_ptr(), int(j0 + r), rowblock.data_ptr(),
               uinv.data_ptr(), l21.data_ptr(), int(bool(gemm_bf16)))
     _lib.counted_launch("panel_update")
+    return slab
+
+
+# --------------------------------------------------------------------------
+# Kernel 10: B over the full slab width, one streaming pass (in place)
+# --------------------------------------------------------------------------
+
+def panel_apply_update_plain(slab, pos, rowblock, uinv, j0, jj0, gemm_bf16=False):
+    """Plain version of :func:`panel_apply_update` (the operations of
+    `panel_fused._apply_update_kernel`: L21 rounded to the slab's dtype,
+    the update's operands in bf16 for a bf16 slab or ``gemm_bf16``, fp32
+    accumulation, one rounding after the subtract)."""
+    _lib.counted_plain("panel_update_full")
+    r = rowblock.shape[0]
+    w = slab.dtype
+    below = (pos >= j0 + r)[:, None]
+    p = slab[:, jj0:jj0 + r]
+    c0 = jj0 + r
+    zero = torch.zeros((), dtype=w, device=slab.device)
+    with ieee_fp32():
+        l21 = torch.where(below, (p.float() @ uinv.float()).to(w), zero)
+        if c0 < slab.shape[1]:
+            bf16_ops = gemm_bf16 or w == torch.bfloat16
+            op = (lambda t: t.to(torch.bfloat16).float()) if bf16_ops else (lambda t: t.float())
+            upd = op(l21) @ op(rowblock[:, c0:])
+            right = slab[:, c0:]
+            slab[:, c0:] = torch.where(below, (right.float() - upd).to(w), right)
+    slab[:, jj0:c0] = torch.where(below, l21, p)
+    return slab
+
+
+def panel_apply_update(slab, pos, rowblock, uinv, j0: int, jj0: int, gemm_bf16: bool = False):
+    """IN PLACE on the fp32 or bf16 ``slab`` (m, bc), one streaming pass
+    (`mpf_tpu/ops/panel_fused.py:panel_apply_update`): for every row at
+    virtual position ``pos >= j0 + r`` compute L21 = A[:, jj0:jj0+r]
+    U11^{-1} (fp32 sums, rounded to the slab's dtype), write it into the
+    panel columns, and subtract L21 @ U12 (``rowblock``'s columns right of
+    the panel) from the columns right of the panel, rounded once.  Columns
+    left of the panel pass through exactly; other rows are untouched.  A
+    bf16 slab takes bf16 operands (``uinv``, ``rowblock`` bf16), an fp32
+    slab fp32 operands or, with ``gemm_bf16``, bf16 ones for the update.
+    Kernels 3 and 12 compute the same function for the driver; this is the
+    JAX package's untrimmed form, which no driver path calls.  Returns
+    ``slab``.
+
+    CPU tensors take the plain version; CUDA tensors launch kernel 10 (one
+    launch)."""
+    if not _lib.on_cuda(slab, pos, rowblock, uinv):
+        return panel_apply_update_plain(slab, pos, rowblock, uinv, j0, jj0, gemm_bf16)
+    _row_major(slab, "panel_apply_update: slab")
+    m, bc = slab.shape
+    r = rowblock.shape[0]
+    _lib.check(rowblock.dtype == uinv.dtype == slab.dtype and rowblock.shape == (r, bc)
+               and uinv.shape == (r, r) and r <= 128 and jj0 + r <= bc,
+               "panel_apply_update: rowblock (r, bc) and uinv (r, r) of the slab's dtype, "
+               "r <= 128, the panel inside the slab")
+    pos = pos.to(torch.int32).contiguous()
+    rowblock = rowblock.contiguous()
+    uinv = uinv.contiguous()
+    _lib.call("mpf_panel_update_full", m, bc, r, slab.data_ptr(), slab.stride(0), int(jj0),
+              pos.data_ptr(), int(j0 + r), rowblock.data_ptr(), uinv.data_ptr(),
+              int(slab.dtype == torch.bfloat16), int(bool(gemm_bf16)))
+    _lib.counted_launch("panel_update_full")
     return slab
 
 

@@ -32,21 +32,25 @@ SENT = 2**31 - 1      # dead-row position sentinel
 _QUANT16_MAX_POS = 65536
 
 
-def _use_quant16(panel_dtype, m: int) -> bool:
+def _use_quant16(panel_dtype, m: int, pos_bound: int | None = None) -> bool:
     """quant16 (bf16 |value| granularity, single-key search) for bf16
     panels whose position range fits the TPU key's 16-bit field; the exact
-    search otherwise (fp32 panels always)."""
-    return panel_dtype == torch.bfloat16 and m <= _QUANT16_MAX_POS
+    search otherwise (fp32 panels always).  The range is ``pos_bound``, the
+    exclusive bound of the live positions, when given, else the slab height
+    ``m``: a deferred-exchange slab carries overflow rows below its logical
+    height while its positions stay below it (`panel_strip.py:822-826`)."""
+    bound = m if pos_bound is None else pos_bound
+    return panel_dtype == torch.bfloat16 and bound <= _QUANT16_MAX_POS
 
 
 def strip_panel_pivots_plain(slab, off, pos, panel_dtype, jj0=0, r=None,
-                             quant16=None):
+                             quant16=None, pos_bound=None):
     """Plain version of :func:`strip_panel_pivots` (one column at a time in
     PyTorch; same arithmetic and round points as the kernel)."""
     _lib.counted_plain("strip_pivots")
     m, w = slab.shape
     r = w if r is None else r
-    quant16 = _use_quant16(panel_dtype, m) if quant16 is None else quant16
+    quant16 = _use_quant16(panel_dtype, m, pos_bound) if quant16 is None else quant16
     dev = slab.device
     f32 = torch.float32
     zero = torch.zeros((), dtype=f32, device=dev)
@@ -116,7 +120,8 @@ def strip_panel_pivots_plain(slab, off, pos, panel_dtype, jj0=0, r=None,
 
 
 def strip_panel_pivots(slab, off: int, pos, panel_dtype=None, jj0: int = 0,
-                       r: int | None = None, quant16: bool | None = None):
+                       r: int | None = None, quant16: bool | None = None,
+                       pos_bound: int | None = None):
     """Virtual-pivoting panel LU of columns [jj0, jj0 + r) of the fp32 or
     bf16 ``slab`` (m, w), with the panel held in ``panel_dtype`` (bf16 or
     fp32; a bf16 slab needs a bf16 panel, which the kernel takes as stored).
@@ -126,14 +131,16 @@ def strip_panel_pivots(slab, off: int, pos, panel_dtype=None, jj0: int = 0,
     (int32): 0-based pivot positions (r,), the updated position map (a new
     tensor; ``pos`` is not modified), and ``glist[j]`` — the slab row that
     lands on position off + j.  ``quant16=None`` picks quant16 for bf16
-    panels with m <= 65536, the exact search otherwise.
+    panels whose live positions lie below 65536 (below ``pos_bound`` when
+    given, else below m), the exact search otherwise.  Rows at position
+    ``2**31 - 1`` are dead: never searched, swapped or eliminated.
 
     CPU tensors take the plain version; CUDA tensors launch kernel 1 (one
     cooperative launch)."""
     m, w = slab.shape
     r = w if r is None else r
     panel_dtype = panel_dtype or slab.dtype
-    quant16 = _use_quant16(panel_dtype, m) if quant16 is None else quant16
+    quant16 = _use_quant16(panel_dtype, m, pos_bound) if quant16 is None else quant16
     if not _lib.on_cuda(slab, pos):
         return strip_panel_pivots_plain(slab, off, pos, panel_dtype, jj0, r, quant16)
     _lib.check(slab.dtype in (torch.float32, torch.bfloat16) and slab.stride(1) == 1,

@@ -82,18 +82,21 @@ def hpl_ai_matrix(n: int, seed: int = 0, dtype=np.float32) -> np.ndarray:
 _CHUNK_ELEMS = 1 << 26
 
 
-def _device_uniform(n: int, seed: int, dtype, device, finish) -> torch.Tensor:
-    """(n, n) matrix of ``dtype`` on ``device`` from U[0, 1) fp32 values of
-    a ``torch.Generator`` seeded with ``seed`` on that device, made in row
-    chunks (one fp32 chunk at a time, so the peak is the output plus one
-    chunk).  ``finish(x, r0)`` turns the fp32 chunk of rows r0.. into its
-    final fp32 values in place; each value is then cast to ``dtype`` once.
-    The chunk height depends on n only, so every dtype sees the same fp32
-    values."""
+def _device_uniform(n: int, seed: int, dtype, device, finish, ext_rows: int = 0) -> torch.Tensor:
+    """(n + ext_rows, n) matrix of ``dtype`` on ``device``: the first n rows
+    from U[0, 1) fp32 values of a ``torch.Generator`` seeded with ``seed``
+    on that device, made in row chunks (one fp32 chunk at a time, so the
+    peak is the output plus one chunk).  ``finish(x, r0)`` turns the fp32
+    chunk of rows r0.. into its final fp32 values in place; each value is
+    then cast to ``dtype`` once.  The chunk height depends on n only, so
+    every dtype sees the same fp32 values.  The ``ext_rows`` rows below are
+    zeros, made after the n rows, so the first n rows are bit-identical to
+    the ``ext_rows=0`` output."""
     dev = torch.device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    out = torch.empty((n, n), dtype=dtype, device=dev)
+    out = torch.empty((n + ext_rows, n), dtype=dtype, device=dev)
+    out[n:] = 0
     chunk = max(1, _CHUNK_ELEMS // max(n, 1))
     for r0 in range(0, n, chunk):
         x = torch.rand((min(chunk, n - r0), n), generator=gen, dtype=torch.float32,
@@ -104,22 +107,26 @@ def _device_uniform(n: int, seed: int, dtype, device, finish) -> torch.Tensor:
 
 
 def hpl_ai_matrix_device(n: int, seed: int = 0, dtype=torch.float32,
-                         device="cuda:0") -> torch.Tensor:
+                         device="cuda:0", ext_rows: int = 0) -> torch.Tensor:
     """The :func:`hpl_ai_matrix` class made on ``device``: U[-0.5, 0.5)
     entries plus the diagonal shift n/4, computed in fp32 and cast to
-    ``dtype`` once (`mpf_tpu/utils/matgen.py:98-146`, 2D form)."""
+    ``dtype`` once (`mpf_tpu/utils/matgen.py:98-146`, 2D form).
+    ``ext_rows``: rows appended below (zeros), the deferred exchange's
+    pre-extended input (`models/mpf.py:defer_extension`); the first n rows
+    do not depend on it."""
     def finish(x, r0):
         x.sub_(0.5)
         x.diagonal(r0).add_(n / 4.0)
-    return _device_uniform(n, seed, dtype, device, finish)
+    return _device_uniform(n, seed, dtype, device, finish, ext_rows)
 
 
 def random_dense_device(n: int, seed: int = 0, dtype=torch.float32,
-                        device="cuda:0") -> torch.Tensor:
+                        device="cuda:0", ext_rows: int = 0) -> torch.Tensor:
     """The :func:`random_dense` class (uniform [0, 9.9]) made on
     ``device``, computed in fp32 and cast to ``dtype`` once
-    (`mpf_tpu/utils/matgen.py:149-168`, 2D form)."""
-    return _device_uniform(n, seed, dtype, device, lambda x, r0: x.mul_(9.9))
+    (`mpf_tpu/utils/matgen.py:149-168`, 2D form); ``ext_rows`` as in
+    :func:`hpl_ai_matrix_device`."""
+    return _device_uniform(n, seed, dtype, device, lambda x, r0: x.mul_(9.9), ext_rows)
 
 
 def random_conditioned(n: int, kappa: float, seed: int = 0, dtype=np.float32) -> np.ndarray:

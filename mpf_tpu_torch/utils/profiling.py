@@ -2,7 +2,7 @@
 
     python -m mpf_tpu_torch.utils.profiling --n 16384 --corpus hpl_ai \\
         [--policy mpf_bf16] [--no-pivot] [--lookahead] [--super S] \\
-        [--xchg split] [--runs 5] [--trace trace.json]
+        [--defer S] [--xchg split] [--runs 5] [--trace trace.json]
 
 Runs one warm-up factorization, then, with ``--runs N``, N more timed with
 CUDA events on fresh copies (their median, each run, each run's host issue
@@ -11,7 +11,8 @@ time and the caching allocator's device allocations), then one under
 wall time, summed device time by kernel name, and the device's idle share
 (1 - busy time / the span from the first device activity to the last;
 work on one stream does not overlap).  ``--lookahead`` runs the one-deep
-lookahead driver, ``--super S`` superblocks of width S, ``--xchg split``
+lookahead driver, ``--super S`` superblocks of width S, ``--defer S`` the
+deferred-overflow exchange in groups of S block columns, ``--xchg split``
 the split row exchange (kernel 11; the CLI sets ``MPF_XCHG``, which
 ``make_mpf`` reads when it builds).  Needs a CUDA device.
 """
@@ -29,7 +30,7 @@ import torch
 def profile_factorization(n: int, corpus: str = "hpl_ai", r: int = 128,
                           trace: str | None = None, policy: str = "mpf_bf16",
                           pivot: bool = True, runs: int = 0, lookahead: bool = False,
-                          super_block="auto") -> dict:
+                          super_block="auto", defer=None) -> dict:
     """Profile one factorization; the exchange mode is the caller's
     ``MPF_XCHG`` (:func:`mpf_tpu_torch.config.combined_exchange`)."""
     from mpf_tpu_torch import config, make_mpf
@@ -43,7 +44,7 @@ def profile_factorization(n: int, corpus: str = "hpl_ai", r: int = 128,
     pol = POLICIES[policy]
     a0 = torch.from_numpy(gen(n, seed=0)).cuda().to(pol.working)  # factored in place
     fac = make_mpf(n, r=r, policy=pol, pivot=pivot, lookahead=lookahead,
-                   super_block=super_block)
+                   super_block=super_block, defer=defer)
     xchg = "combined" if config.combined_exchange() else "split"
     fac(a0.clone())
     timed = {}
@@ -90,7 +91,8 @@ def profile_factorization(n: int, corpus: str = "hpl_ai", r: int = 128,
     span_ms = (last - first) / 1e3 if by_kernel else 0.0
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15])
     return {"n": n, "corpus": corpus, "policy": policy, "r": r, "pivot": pivot,
-            "lookahead": lookahead, "super_block": super_block, "xchg": xchg, **timed,
+            "lookahead": lookahead, "super_block": super_block, "defer": defer,
+            "xchg": xchg, **timed,
             "wall_ms": wall * 1e3,
             "device_busy_ms": busy_ms, "device_span_ms": span_ms,
             "idle_share": 1.0 - busy_ms / span_ms if span_ms else None,
@@ -107,6 +109,7 @@ def main() -> None:
     ap.add_argument("--no-pivot", action="store_true")
     ap.add_argument("--lookahead", action="store_true")
     ap.add_argument("--super", type=int, default=None, dest="super_block")
+    ap.add_argument("--defer", type=int, default=None)
     ap.add_argument("--xchg", choices=("combined", "split"), default="combined")
     ap.add_argument("--runs", type=int, default=0)
     ap.add_argument("--trace", default=None)
@@ -115,7 +118,8 @@ def main() -> None:
     print(json.dumps(profile_factorization(args.n, args.corpus, trace=args.trace,
                                            policy=args.policy, pivot=not args.no_pivot,
                                            runs=args.runs, lookahead=args.lookahead,
-                                           super_block=args.super_block or "auto")))
+                                           super_block=args.super_block or "auto",
+                                           defer=args.defer)))
 
 
 if __name__ == "__main__":

@@ -14,10 +14,13 @@ from mpf_tpu_torch import (
     ALL_BF16, MPF_BF16, MPF_FP16, MPF_REF, PURE_FP32, make_mpf, mpf_factorize)
 from mpf_tpu_torch.ops import _lib
 from mpf_tpu_torch.ops.blas3 import _leaves, tri_inv_leaves, tri_inv_leaves_plain
-from mpf_tpu_torch.ops.exchange import rows_exchange, rows_exchange_plain
+from mpf_tpu_torch.ops.exchange import (
+    copy_rows_block, copy_rows_block_plain, flush_overflow, flush_overflow_plain, rows_exchange,
+    rows_exchange_plain)
 from mpf_tpu_torch.ops.gemmx import gemm_trailing, gemm_trailing_plain
 from mpf_tpu_torch.ops.panel_fused import (
-    l21_trim, l21_trim_plain, panel_apply_update_trim, panel_apply_update_trim_plain,
+    l21_trim, l21_trim_plain, panel_apply_update, panel_apply_update_plain,
+    panel_apply_update_trim, panel_apply_update_trim_plain,
     rowblock_assemble, rowblock_assemble_plain, rows_gather, rows_gather_plain,
     rows_scatter_from_band, rows_scatter_from_band_plain, rows_scatter_inplace,
     rows_scatter_inplace_plain, trailing_gemm_sub, trailing_gemm_sub_plain, upd_wide,
@@ -25,7 +28,7 @@ from mpf_tpu_torch.ops.panel_fused import (
 from mpf_tpu_torch.ops.panel_pallas import (
     getf2_npv_block, getf2_npv_inv_block, getf2_npv_inv_plain, hgetf2_panel_plain,
     hgetf2_panel_swaps, laswp_apply, laswp_plain)
-from mpf_tpu_torch.ops.panel_strip import strip_panel_pivots, strip_panel_pivots_plain
+from mpf_tpu_torch.ops.panel_strip import SENT, strip_panel_pivots, strip_panel_pivots_plain
 from mpf_tpu_torch.precision import cast_to_panel
 from mpf_tpu_torch.utils import matgen
 from mpf_tpu_torch.utils.oracle import check_factorization_device, sum_slack, within_bf16_ulp
@@ -462,3 +465,89 @@ def test_lookahead_split_superblock_on_card(cuda, policy, monkeypatch):
     assert torch.equal(sp.lu, classic.lu) and torch.equal(sp.perm, classic.perm)
     sb = mpf_factorize(a, r=128, policy=policy, block=512, super_block=1024)
     assert check_factorization_device(a, sb.lu, sb.ipiv, nbe_tol=tol).ok
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+def test_overflow_kernels_exact(cuda, dtype):
+    """Kernel 14: the band copy and the flush (dead slots carry the
+    sentinel and are dropped) bitwise equal to their plain versions, on
+    an odd width (unaligned rows take the element copy)."""
+    n, ov, w = 1024, 256, 1001
+    a = (torch.rand((n + ov, w), device=cuda) - 0.5).to(dtype)
+    x, y = a.clone(), a.clone()
+    _lib.reset_counts()
+    copy_rows_block(x, 128, n + 64, 192)
+    copy_rows_block_plain(y, 128, n + 64, 192)
+    assert torch.equal(x, y) and _lib.launches["copy_rows"] == 1
+    gen = torch.Generator().manual_seed(3)
+    dests = torch.full((ov,), SENT, dtype=torch.int32)
+    live = torch.randperm(ov, generator=gen)[:150]
+    dests[live] = torch.randperm(n, generator=gen)[:150].to(torch.int32)
+    dests = dests.to(cuda)
+    flush_overflow(x, n, dests)
+    flush_overflow_plain(y, n, dests)
+    assert torch.equal(x, y) and _lib.launches["flush_overflow"] == 1
+
+
+@pytest.mark.parametrize("dtype,gemm_bf16", [(torch.float32, False), (torch.float32, True),
+                                             (BF, False)])
+def test_kernel10_on_card(cuda, dtype, gemm_bf16):
+    """Kernel 10 at jj0 = 0, 128 and 448 of a 2000 x 512 slab, r = 64:
+    L21 within one ulp of the slab's dtype of the plain version's; the
+    update within 1e-5 of max |slab| for fp32 operands and within one bf16
+    ulp plus the sum-order slack for bf16 ones; the columns left of the
+    panel and the frozen rows exact.  One launch a call."""
+    rng = np.random.default_rng(7)
+    m, bc, r = 2000, 512, 64
+    for jj0 in (0, 128, 448):
+        slab = torch.from_numpy(rng.standard_normal((m, bc)).astype(np.float32)).to(cuda)
+        slab = slab.to(dtype)
+        pos = torch.from_numpy(rng.permutation(m).astype(np.int32)).to(cuda)
+        rb = torch.from_numpy(rng.standard_normal((r, bc)).astype(np.float32)).to(cuda).to(dtype)
+        ui = torch.triu(torch.from_numpy(rng.standard_normal((r, r)).astype(np.float32)) / 8)
+        ui = ui.to(cuda).to(dtype)
+        x, y = slab.clone(), slab.clone()
+        _lib.reset_counts()
+        panel_apply_update(x, pos, rb, ui, jj0, jj0, gemm_bf16)
+        assert _lib.launches["panel_update_full"] == 1
+        panel_apply_update_plain(y, pos, rb, ui, jj0, jj0, gemm_bf16)
+        below = pos >= jj0 + r
+        c0 = jj0 + r
+        assert torch.equal(x[~below], slab[~below]) and torch.equal(x[:, :jj0], slab[:, :jj0])
+        assert within_bf16_ulp(x[:, jj0:c0], y[:, jj0:c0]).ok if dtype == BF else (
+            float((x[:, jj0:c0] - y[:, jj0:c0]).abs().max()) <= 1e-5 * float(y.abs().max()))
+        if c0 < bc:
+            if dtype == torch.float32 and not gemm_bf16:
+                d = float((x[:, c0:] - y[:, c0:]).abs().max())
+                assert d <= 1e-5 * float(y.abs().max()), d
+            else:
+                # the update fed the kernel's own L21, so only the sum order differs
+                l21 = torch.where(below[:, None], x[:, jj0:c0].float(), 0.0).to(BF)
+                z = slab.clone()
+                z[:, c0:] = torch.where(below[:, None], (slab[:, c0:].float() - l21.float()
+                                        @ rb[:, c0:].to(BF).float()).to(dtype), slab[:, c0:])
+                rep = within_bf16_ulp(x[:, c0:], z[:, c0:],
+                                      sum_slack(slab[:, c0:], l21, rb[:, c0:].to(BF)))
+                assert rep.ok, rep
+
+
+@pytest.mark.parametrize("policy", [MPF_BF16, ALL_BF16])
+def test_defer_bitwise_equals_classic_on_card(cuda, policy):
+    """n = 2048, block 256, S = 2 on the uniform matrix: the deferred
+    driver's factors, pivots and row map bitwise equal to the classic
+    loop's on the card (the kernels' sums do not depend on the slab's
+    height), with 8 band copies and 4 flushes; the pre-extended input
+    factored in place equals it too."""
+    n, block, S = 2048, 256, 2
+    a = torch.from_numpy(matgen.random_dense(n, seed=4)).to(cuda)
+    classic = mpf_factorize(a, r=128, policy=policy, block=block)
+    _lib.reset_counts()
+    d = mpf_factorize(a, r=128, policy=policy, block=block, defer=S)
+    assert _lib.launches["copy_rows"] == 8 and _lib.launches["flush_overflow"] == 4
+    assert not any(_lib.plain_calls.values())
+    assert torch.equal(d.lu, classic.lu) and torch.equal(d.ipiv, classic.ipiv)
+    assert torch.equal(d.perm, classic.perm)
+    ext = torch.cat([a.to(policy.working), torch.zeros((S * block, n), device=cuda,
+                                                       dtype=policy.working)])
+    e = make_mpf(n, r=128, policy=policy, block=block, defer=S)(ext)
+    assert e.lu.data_ptr() == ext.data_ptr() and torch.equal(e.lu, classic.lu)

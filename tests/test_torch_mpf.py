@@ -142,12 +142,16 @@ def test_auto_block():
 
 
 @pytest.mark.parametrize("kwargs,what", [
-    (dict(defer=2), "defer"),
+    (dict(defer=2), "deferred"),
 ])
 def test_outside_the_slice_raises(kwargs, what):
-    a = torch.eye(96)
-    with pytest.raises(NotImplementedError, match=what):
-        T.mpf_factorize(a, **{"r": 8, **kwargs})
+    """``defer`` is ported; what lies outside it still raises: a
+    row-extended input whose extra rows are not the resolved S·block (here
+    ``defer=2`` at n = 96, r = 8, block 96 resolves to 0, n < 2 block),
+    while the square input factors with the deferral resolved off."""
+    with pytest.raises(ValueError, match=what):
+        T.mpf_factorize(torch.zeros(96 + 192, 96), **{"r": 8, **kwargs})
+    assert int(T.mpf_factorize(torch.eye(96), **{"r": 8, **kwargs}).info) == 0
 
 
 @pytest.mark.parametrize("kwargs,kernel", [

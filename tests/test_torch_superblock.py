@@ -145,20 +145,31 @@ def test_split_exchange_gates_lookahead(monkeypatch):
     assert _lib.plain_calls["gemmx"] == 0 and _lib.plain_calls["rows_gather"] == 4
 
 
-def test_defer_raises(monkeypatch):
-    """The deferred exchange is not ported: ``defer=S``, ``defer=True`` and
-    MPF_DEFER=<int> raise; ``auto``, ``0`` and ``pivot=False`` resolve to 0
-    and factor."""
-    a = torch.eye(96)
-    for kw in (dict(defer=4), dict(defer=True)):
-        with pytest.raises(NotImplementedError, match="defer"):
-            T.mpf_factorize(a, r=8, **kw)
-    monkeypatch.setenv("MPF_DEFER", "8")
-    with pytest.raises(NotImplementedError, match="defer"):
-        T.make_mpf(96, r=8)
+def test_defer_runs(monkeypatch):
+    """The deferred exchange is ported: ``defer=S``, ``defer=True`` (with
+    ``MPF_DEFER_S``) and ``MPF_DEFER=<int>`` (read by make_mpf when it
+    builds) run it on the CPU through the plain versions (band copies and
+    flushes counted, no launch), with the classic loop's pivots; ``auto``,
+    ``0``, ``False`` and ``pivot=False`` resolve to 0 and factor."""
+    a = torch.from_numpy(matgen.hpl_ai_matrix(512, seed=10).astype(np.float32))
+    ref = T.mpf_factorize(a, r=32, block=128)
+    monkeypatch.setenv("MPF_DEFER_S", "4")
+    for kw, flushes in ((dict(defer=2), 2), (dict(defer=True), 1)):
+        _lib.reset_counts()
+        res = T.mpf_factorize(a, r=32, block=128, **kw)
+        assert _lib.plain_calls["flush_overflow"] == flushes, kw
+        assert _lib.plain_calls["copy_rows"] == 4 and not any(_lib.launches.values())
+        assert torch.equal(res.ipiv, ref.ipiv) and torch.equal(res.lu, ref.lu)
+    monkeypatch.setenv("MPF_DEFER", "1")
+    fac = T.make_mpf(512, r=32, block=128)
+    _lib.reset_counts()
+    assert torch.equal(fac(a.clone()).perm, ref.perm)
+    assert _lib.plain_calls["flush_overflow"] == 4
     assert config.resolve_defer(None, pivot=False) == 0
-    assert int(T.mpf_factorize(a, r=8, defer=False).info) == 0
+    assert config.resolve_defer(False) == 0
     for env in ("auto", "0"):
         monkeypatch.setenv("MPF_DEFER", env)
         assert config.resolve_defer() == 0
-        assert int(T.mpf_factorize(a, r=8).info) == 0
+        _lib.reset_counts()
+        assert int(T.mpf_factorize(a, r=32, block=128).info) == 0
+        assert _lib.plain_calls["copy_rows"] == 0
