@@ -71,7 +71,27 @@ Phases, one line each:
   7b. defer = 8 under ALL_BF16 at n = 65536 on HPL-AI through the
      pre-extended (n + 8192, n) input made on the card: one timed run beside
      5b's, pivots and row map equal to 5b's, launch counts, oracle, peak
-     memory.
+     memory;
+  2f. (run after 2e) kernels 15a-15d of the pair-layout driver at block
+     column 0 of n = 16384 (m = 16384, bc = 1024, w = 15360), fp32 and
+     bf16: the slab extract, writeback and band write bitwise equal to
+     their plain versions, rows_exchange3 and trailing_sub3 (kernels 4 and
+     6 on the pair tensor) bitwise equal to the plain exchange and to
+     kernel 6 on the 2D view; the in-place U12 within one working-dtype ulp of
+     its plain version plus sum_slack (the largest share of that bound used
+     printed), with L^-1 from the uniform matrix's first block column;
+  8. the pair-layout (n/2, 2, n) driver at n = 16384, MPF_BF16 beside
+     phase 3 and ALL_BF16 beside phase 5, on their matrices viewed as pairs:
+     device oracle, the exact launch counts, no plain call, HPL-AI pivots
+     and row map equal to the 2D loop's, the uniform matrix's first pivot
+     that differs printed, the max |lu - 2D lu| printed, median of 3.  The
+     factors need not equal the 2D loop's bit for bit: kernel 15d sums U12
+     in ascending order with FMA, and cuBLAS need not;
+  8b. the pair layout under ALL_BF16 at n = 65536 on HPL-AI from
+     hpl_ai_matrix_device(pairs=True) (5b's matrix bit for bit): one timed
+     run beside 5b's, pivots and row map equal to 5b's, launch counts,
+     oracle, resident and peak memory.
+Every phase at n = 65536 prints the device memory resident before it.
 Then the card's name and power limit, one JSON line of per-kernel results
 (times, errors against the plain version, launches in the main path's run,
 the least time the card could take and the time of a PyTorch call that
@@ -112,11 +132,13 @@ MASKED_BF16 = ("tri_inv", "trailing_sub", "hgetf2", "laswp")
 SPLIT = ("rows_gather", "rows_scatter")  # kernel 11, MPF_XCHG=split
 DEFER = ("copy_rows", "flush_overflow")  # kernel 14, the deferred exchange
 DEFER_S = 8                              # its group size in phases 7 and 7b
+PAIRS = ("slab_extract", "slab_writeback", "band_write", "u12_inplace")  # 15a-15d
 BF = torch.bfloat16
 
 
 def fused_counts(n: int, r: int, bc: int, bf16: bool = False, lookahead: bool = False,
-                 split: bool = False, super_cols: int = 0, defer_s: int = 0) -> dict:
+                 split: bool = False, super_cols: int = 0, defer_s: int = 0,
+                 pairs: bool = False) -> dict:
     """Launches of one fused factorization of an n x n matrix, stated from
     the algorithm: every panel runs kernels 1 and 2 and B (kernel 3; under
     ALL_BF16 kernel 12's L21 pass, and its update pass on every panel but
@@ -132,7 +154,9 @@ def fused_counts(n: int, r: int, bc: int, bf16: bool = False, lookahead: bool = 
     kernel 6, one kernel 5 per block column of it).  Deferred exchange in
     groups of ``defer_s`` block columns: kernel 4 still runs in every block
     column (its eager part), kernel 14's band copy in every block column and
-    its flush once a group."""
+    its flush once a group.  Pair layout: every block column one slab
+    extract, one writeback and one band write beside its kernel 4, and every
+    block column but the last one in-place U12 beside its kernels 5 and 6."""
     panels, cols = n // r, n // bc
     c = {"strip_pivots": panels, "rowblock": panels, "rows_exchange": cols,
          "tri_inv": cols - 1, "trailing_sub": cols - 1}
@@ -150,6 +174,8 @@ def fused_counts(n: int, r: int, bc: int, bf16: bool = False, lookahead: bool = 
         c.update(trailing_sub=mid + supers - 1, tri_inv=mid + (supers - 1) * super_cols)
     if defer_s:
         c.update(copy_rows=cols, flush_overflow=-(-cols // defer_s))
+    if pairs:
+        c.update(slab_extract=cols, slab_writeback=cols, band_write=cols, u12_inplace=cols - 1)
     return c
 
 
@@ -199,6 +225,19 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def live_cuda_tensors(top: int = 5):
+    """GiB of the distinct CUDA storages that Python objects hold, and the
+    ``top`` largest as (GiB, shape, dtype): who owns the resident memory."""
+    import gc
+    seen = {}
+    for o in gc.get_objects():
+        if torch.is_tensor(o) and o.is_cuda:
+            st = o.untyped_storage()
+            seen.setdefault(st.data_ptr(), (st.nbytes() / 2**30, tuple(o.shape), str(o.dtype)[6:]))
+    big = sorted(seen.values(), key=lambda v: -v[0])
+    return sum(v[0] for v in big), [(round(g, 3), sh, dt) for g, sh, dt in big[:top]]
+
+
 def dyadic(rng, m, r):
     a = (rng.integers(-4, 5, (m, r)) * 2.0 ** rng.integers(-2, 3, (m, r))).astype(np.float32)
     a[a == 0] = 1.0
@@ -210,12 +249,19 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    import mpf_tpu_torch as T
+    try:
+        import mpf_tpu_torch as T
+    except ModuleNotFoundError:
+        print("chip_smoke: the mpf_tpu_torch package is not importable; run this script "
+              "from the root of the repository", file=sys.stderr)
+        return 2
     from mpf_tpu_torch.ops import _lib
-    from mpf_tpu_torch.ops.blas3 import _leaves, tri_inv_leaves, tri_inv_leaves_plain
+    from mpf_tpu_torch.models.mpf import _factor_block_column_fused
+    from mpf_tpu_torch.ops.blas3 import (
+        _leaves, tri_inv_leaves, tri_inv_leaves_plain, unit_lower_inv_blocked)
     from mpf_tpu_torch.ops.exchange import (
         copy_rows_block, copy_rows_block_plain, flush_overflow, flush_overflow_plain,
-        rows_exchange, rows_exchange_plain)
+        rows_exchange, rows_exchange3, rows_exchange_plain)
     from mpf_tpu_torch.ops.gemmx import gemm_trailing, gemm_trailing_plain
     from mpf_tpu_torch.ops.panel_fused import (
         l21_trim, l21_trim_plain, panel_apply_update, panel_apply_update_plain,
@@ -224,6 +270,9 @@ def main() -> int:
         rows_scatter_from_band, rows_scatter_from_band_plain, rows_scatter_inplace,
         rows_scatter_inplace_plain, trailing_gemm_sub, trailing_gemm_sub_plain, upd_wide,
         upd_wide_plain)
+    from mpf_tpu_torch.ops.pair3d import (
+        as_matrix, band_write_rows, band_write_rows_plain, slab_extract, slab_extract_plain,
+        slab_writeback, slab_writeback_plain, trailing_sub3, u12_transform, u12_transform_plain)
     from mpf_tpu_torch.ops.panel_pallas import (
         getf2_npv_block, getf2_npv_inv_block, getf2_npv_inv_plain, hgetf2_panel_plain,
         hgetf2_panel_swaps, laswp_apply, laswp_plain)
@@ -232,7 +281,8 @@ def main() -> int:
     from mpf_tpu_torch.precision import cast_to_panel
     from mpf_tpu_torch.utils import matgen
     from mpf_tpu_torch.utils.oracle import (
-        check_factorization_device, ipiv_to_perm, sum_slack, tri_inv_slack, within_bf16_ulp)
+        check_factorization_device, ipiv_to_perm, sum_slack, tri_inv_slack, within_bf16_ulp,
+        within_ulp)
     from mpf_tpu_torch.utils.timing import cuda_time, tflops
 
     dev = torch.device("cuda", 0)
@@ -270,6 +320,10 @@ def main() -> int:
         "copy_rows": "mpf_tpu/ops/exchange.py:676",
         "flush_overflow": "mpf_tpu/ops/exchange.py:432",
         "panel_update_full": "mpf_tpu/ops/panel_fused.py:286",
+        "slab_extract": "mpf_tpu/ops/pair3d.py:90",
+        "slab_writeback": "mpf_tpu/ops/pair3d.py:113",
+        "band_write": "mpf_tpu/ops/pair3d.py:205",
+        "u12_inplace": "mpf_tpu/ops/pair3d.py:281",
     }
     source = {
         "strip_pivots": "mpf_tpu_torch/csrc/strip_pivots.cu",
@@ -290,6 +344,7 @@ def main() -> int:
         "copy_rows": "mpf_tpu_torch/csrc/overflow.cu",
         "flush_overflow": "mpf_tpu_torch/csrc/overflow.cu",
         "panel_update_full": "mpf_tpu_torch/csrc/panel_update_full.cu",
+        **{k: "mpf_tpu_torch/csrc/pair3d.cu" for k in PAIRS},
     }
 
     def record(name, abs_err, rel_err, ms, plain_ms, bnd, library_ms, **extra):
@@ -1091,6 +1146,131 @@ def main() -> int:
     record_bf16("panel_update_full", err10["bf16"], *ms10["bf16"], b10["bf16"], None)
     del uni_b
 
+    # ---------------- phase 2f: the pair-layout kernels vs plain ------------
+    # #15a-15c at block column 0 of n = 16384 on the HPL-AI matrix as a pair
+    # tensor (the slab m = n, bc = 1024; the band write of 1024 gathered
+    # rows at k = 1024): bitwise.  #15d with L^-1 of the uniform matrix's
+    # first block column (made on the card, factored by the panel kernels,
+    # as the path factors it) on its A12 (1024 x 15360): within one ulp of
+    # the working dtype plus sum_slack
+    nr15, w15 = bc, n - bc
+    pivsrc = src.long()                       # phase 2's 1024 rows from [k, n)
+    for dt in (torch.float32, BF):
+        tag = str(dt)[6:]
+        a3 = (hpl if dt == torch.float32 else hpl.to(BF)).view(n // 2, 2, n)
+        el = a3.element_size()
+        _lib.reset_counts()
+        s_k, s_p = slab_extract(a3, 0, 0, n, bc), slab_extract_plain(a3, 0, 0, n, bc)
+        ok_x = torch.equal(s_k, s_p)
+        x3, y3 = a3.clone(), a3.clone()
+        neg = -s_k
+        slab_writeback(x3, neg, 0, 0)
+        slab_writeback_plain(y3, neg, 0, 0)
+        ok_w = torch.equal(x3, y3)
+        rows15 = as_matrix(a3)[pivsrc]
+        band_write_rows(x3, rows15, bc)
+        band_write_rows_plain(y3, rows15, bc)
+        ok_b = torch.equal(x3, y3)
+        launched15 = [_lib.launches[k] for k in PAIRS[:3]]
+        phase(f"k15abc_{tag}", ok_x and ok_w and ok_b and launched15 == [1, 1, 1],
+              extract_exact=ok_x, writeback_exact=ok_w, band_write_exact=ok_b)
+        err15 = 0.0 if ok_x and ok_w and ok_b else max(absd(s_k, s_p), absd(x3, y3))
+        view0 = as_matrix(a3)[:, :bc]
+        xv, band_v = as_matrix(x3)[:, :bc], as_matrix(x3)[bc:2 * bc]
+        times = {
+            "slab_extract": (event_ms(lambda: slab_extract(a3, 0, 0, n, bc)),
+                             event_ms(lambda: slab_extract_plain(a3, 0, 0, n, bc)),
+                             library(lambda: s_p.copy_(view0))),
+            "slab_writeback": (event_ms(lambda: slab_writeback(x3, neg, 0, 0)),
+                               event_ms(lambda: slab_writeback_plain(y3, neg, 0, 0)),
+                               library(lambda: xv.copy_(neg))),
+            "band_write": (event_ms(lambda: band_write_rows(x3, rows15, bc)),
+                           event_ms(lambda: band_write_rows_plain(y3, rows15, bc)),
+                           library(lambda: band_v.copy_(rows15))),
+        }
+        # each element read once and written once
+        b15 = {"slab_extract": bound(2 * el * n * bc), "slab_writeback": bound(2 * el * n * bc),
+               "band_write": bound(2 * el * nr15 * n)}
+        for name, (ms, pms, lib) in times.items():
+            if dt == torch.float32:
+                record(name, err15, 0.0, ms, pms, b15[name], lib)
+            else:
+                record_bf16(name, err15, ms, pms, b15[name], lib)
+            print(f"[INFO] k15 {name} {tag}: {ms:.4f} ms (bound {b15[name][0]:.4f}, plain "
+                  f"{pms:.4f}, copy_ {lib})", flush=True)
+        del s_k, s_p, neg, rows15, view0, xv, band_v
+        # rows_exchange3 and trailing_sub3: kernels 4 and 6 on the pair
+        # tensor (phase 2's exchange at k = 1024, a K = 1024 update at e =
+        # 1024), bitwise equal to the plain exchange and to kernel 6 on the
+        # (n, n) view
+        x3, y3 = a3.clone(), a3.clone()
+        _lib.reset_counts()
+        pr_k = rows_exchange3(x3, bc, src, src)
+        pr_p = rows_exchange_plain(as_matrix(y3), bc, src, src)
+        ok_x3 = torch.equal(pr_k, pr_p) and torch.equal(x3, y3)
+        gen = torch.Generator(device=dev).manual_seed(15)
+        l21 = (torch.rand((n - bc, bc), generator=gen, device=dev) - 0.5).to(BF)
+        u12 = (torch.rand((bc, n - bc), generator=gen, device=dev) - 0.5).to(BF)
+        trailing_sub3(x3, l21, u12, bc)
+        trailing_gemm_sub(as_matrix(y3), l21, u12, bc)
+        ok_s3 = torch.equal(x3, y3)
+        counted = (_lib.launches["rows_exchange"], _lib.launches["trailing_sub"]) == (1, 2)
+        phase(f"rows_exchange3_trailing_sub3_{tag}", ok_x3 and ok_s3 and counted,
+              rows_exchange3_exact=ok_x3, trailing_sub3_equals_kernel6=ok_s3)
+        kern["rows_exchange"].setdefault("pair_layout", {})[tag] = {
+            "ms": event_ms(lambda: rows_exchange3(x3, bc, src, src)),
+            "plain_ms": event_ms(lambda: rows_exchange_plain(as_matrix(y3), bc, src, src))}
+        kern["trailing_sub"].setdefault("pair_layout", {})[tag] = {
+            "ms": event_ms(lambda: trailing_sub3(x3, l21, u12, bc))}
+        print(f"[INFO] rows_exchange3 / trailing_sub3 {tag}: "
+              f"{json.dumps(kern['rows_exchange']['pair_layout'][tag])} / "
+              f"{json.dumps(kern['trailing_sub']['pair_layout'][tag])}", flush=True)
+        del pr_k, pr_p, l21, u12
+        # #15d: a real L^-1 (the uniform matrix's block column 0, factored by
+        # kernels 1-3 or 1, 2, 12) on that matrix's A12, in place
+        policy = T.MPF_BF16 if dt == torch.float32 else T.ALL_BF16
+        u3 = matgen.random_dense_device(n, seed=2, dtype=dt, device=dev, pairs=True)
+        sub = slab_extract(u3, 0, 0, n, bc)
+        u_all = _factor_block_column_fused(sub, 0, r, policy)[3]
+        linv = unit_lower_inv_blocked(u_all, base=r)
+        del sub, u_all
+        a12 = as_matrix(u3)[:bc, bc:].clone()
+        x3, y3 = u3.clone(), u3.clone()
+        _lib.reset_counts()
+        u12_transform(x3, linv, 0, bc, w15)
+        one = _lib.launches["u12_inplace"] == 1
+        u12_transform_plain(y3, linv, 0, bc, w15)
+        got, ref = as_matrix(x3)[:bc, bc:], as_matrix(y3)[:bc, bc:]
+        rep15 = within_ulp(got, ref, sum_slack(torch.zeros((), device=dev), linv, a12), dt)
+        err_u = absd(got, ref)
+        rel_u = err_u / float(ref.double().abs().max())
+        got.zero_()
+        ref.zero_()
+        outside = torch.equal(x3, y3)
+        phase(f"k15d_u12_inplace_{tag}", rep15.ok and outside and one,
+              within_ulp_and_sum_order=rep15.ok, beyond_one_ulp=rep15.beyond,
+              slack_used=f"{rep15.slack_used:.4f}", outside_exact=outside,
+              max_abs_err=f"{err_u:.3e}")
+        x3.copy_(u3)
+        ms = event_ms(lambda: u12_transform(x3, linv, 0, bc, w15))
+        pms = event_ms(lambda: u12_transform_plain(x3, linv, 0, bc, w15), 2)
+        linv_f, a12_f = linv.float(), a12.float()
+        lib = library(lambda: torch.matmul(linv_f, a12_f))
+        # A12 read and U12 written, L^-1 read; kw^2 w flops (the j <= i
+        # terms) on operands of the working dtype
+        ops, nbytes = bc * bc * w15, el * (2 * bc * w15 + bc * bc)
+        b = bound(nbytes, ops) if dt == torch.float32 else bound(nbytes, 0, ops)
+        extra = dict(slack_used=rep15.slack_used, fp32_ffma_bound_ms=bound(0, ops)[0])
+        if dt == torch.float32:
+            record("u12_inplace", err_u, rel_u, ms, pms, b, lib, **extra)
+        else:
+            record_bf16("u12_inplace", err_u, ms, pms, b, lib, **extra)
+        print(f"[INFO] k15d u12_inplace {tag}: {ms:.4f} ms (bound {b[0]:.4f} {b[1]}, IEEE "
+              f"fp32 FFMA bound {extra['fp32_ffma_bound_ms']:.4f}, plain {pms:.4f}, matmul "
+              f"{lib})", flush=True)
+        del a3, x3, y3, u3, linv, a12, got, ref, linv_f, a12_f
+        torch.cuda.empty_cache()
+
     del hpl, slab0, uni, dyp, p16
     torch.cuda.empty_cache()
 
@@ -1261,6 +1441,9 @@ def main() -> int:
     gen_s = time.perf_counter() - t1
     fac5b = T.make_mpf(nb, r=r, policy=T.ALL_BF16)
     resident = torch.cuda.memory_allocated()   # the matrix, its copy, earlier phases'
+    live_gib, largest = live_cuda_tensors()
+    print(f"[INFO] before 5b: {resident / 2**30:.2f} GiB allocated, {live_gib:.2f} GiB held by "
+          f"live tensors, largest {largest}", flush=True)
     torch.cuda.reset_peak_memory_stats()
     _lib.reset_counts()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1360,7 +1543,48 @@ def main() -> int:
           tflops=f"{tflops(nb, d_ms / 1e3):.2f}", generate_s=f"{gen_s:.2f}",
           resident_gib_before=f"{resident / 2**30:.2f}",
           peak_gib_factorization=f"{d_peak / 2**30:.2f}", card=f"'{smi}'")
-    del ext, big_a, res, ipiv, perm5b
+    del ext, big_a, res
+    torch.cuda.empty_cache()
+
+    # ---------------- phase 8b: the pair layout, ALL_BF16 at n = 65536 -----
+    # hpl_ai_matrix_device(pairs=True) is 5b's matrix bit for bit, as an
+    # (n/2, 2, n) tensor factored in place: 5b's pivots and row map are the
+    # reference
+    t1 = time.perf_counter()
+    a3 = matgen.hpl_ai_matrix_device(nb, seed=0, dtype=BF, device=dev, pairs=True)
+    big_a = as_matrix(a3).clone()             # the oracle's A
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t1
+    fac8b = T.make_mpf(nb, r=r, policy=T.ALL_BF16)
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_counts()
+    start.record()
+    res = fac8b(a3)
+    end.record()
+    end.synchronize()
+    p_ms = start.elapsed_time(end)
+    p_peak = torch.cuda.max_memory_allocated()
+    launched = dict(_lib.launches)
+    want8b = fused_counts(nb, r, bc, bf16=True, pairs=True)
+    counters_ok = (not any(_lib.plain_calls.values())
+                   and all(launched[k] == want8b.get(k, 0) for k in _lib.KERNELS))
+    in_place = res.lu.data_ptr() == a3.data_ptr() and tuple(res.lu.shape) == (nb // 2, 2, nb)
+    same_piv = torch.equal(res.ipiv, ipiv) and torch.equal(res.perm, perm5b)
+    info = int(res.info)
+    lu8b = as_matrix(res.lu)
+    finite = bool(torch.isfinite(lu8b).all())
+    rep8b = check_factorization_device(big_a, lu8b, res.ipiv, nbe_tol=NBE_TOL_BF16, chunk=2048)
+    phase("pairs_all_bf16_n65536_hpl_ai",
+          rep8b.ok and counters_ok and finite and info == 0 and same_piv and in_place,
+          n=nb, policy="all_bf16", r=r, nbe=f"{rep8b.normwise_backward_err:.3e}", info=info,
+          pivots_and_perm_equal_5b=same_piv, pair_layout_in_place=in_place,
+          launches=json.dumps(launched, separators=(",", ":")), ms=f"{p_ms:.2f}",
+          classic_5b_ms=f"{big_ms:.2f}", ratio_to_5b=f"{p_ms / big_ms:.4f}",
+          tflops=f"{tflops(nb, p_ms / 1e3):.2f}", generate_s=f"{gen_s:.2f}",
+          resident_gib_before=f"{resident / 2**30:.2f}",
+          peak_gib_factorization=f"{p_peak / 2**30:.2f}", card=f"'{smi}'")
+    del a3, big_a, res, lu8b, ipiv, perm5b
     torch.cuda.empty_cache()
 
     # ---------------- phases 5c, 5d: ALL_BF16 off the fused path -----------
@@ -1374,15 +1598,20 @@ def main() -> int:
 
     # ---------------- phases 6-6d: lookahead, split exchange, superblock ----
     def variant_run(tag, fac6, policy, corpus, gen, want, tol, ref, ref_ms,
-                    same_pivots: bool, bitwise: bool = False):
+                    same_pivots: bool, bitwise: bool = False, pairs: bool = False):
         """One n = 16384 factorization through a variant of the fused loop.
         Counts set to 0 just before it and read just after must equal
         ``want`` exactly; the device oracle at ``tol``; pivots and row map
         against ``ref`` (the classic loop's in this run): equal where
         ``same_pivots``, else the first differing pivot is printed; with
-        ``bitwise`` the factors too; median of 3 beside ``ref_ms``."""
+        ``bitwise`` the factors too; median of 3 beside ``ref_ms``.
+        ``pairs``: the matrix goes in as its (n/2, 2, n) view, the factors
+        come back so, and their largest difference from ``ref``'s is
+        printed."""
         a0 = torch.from_numpy(gen(n, seed=0)).to(dev)
         a0w = a0.to(policy.working)
+        if pairs:
+            a0w = a0w.view(n // 2, 2, n)
         work = a0w.clone()
         torch.cuda.synchronize()
         _lib.reset_counts()
@@ -1394,15 +1623,22 @@ def main() -> int:
         plain = dict(_lib.plain_calls)
         counters_ok = (not any(plain.values())
                        and all(launched[k] == want.get(k, 0) for k in _lib.KERNELS))
-        rep6 = check_factorization_device(a0, res.lu, res.ipiv, nbe_tol=tol)
+        fields = {}
+        lu = res.lu
+        if pairs:
+            ok_shape = tuple(lu.shape) == (n // 2, 2, n) and lu.data_ptr() == work.data_ptr()
+            counters_ok = counters_ok and ok_shape
+            lu = as_matrix(lu)
+            fields = dict(pair_layout_in_place=ok_shape,
+                          max_abs_diff_lu_vs_2d=f"{absd(lu, ref.lu):.3e}")
+        rep6 = check_factorization_device(a0, lu, res.ipiv, nbe_tol=tol)
         perm = res.perm.long()
         is_perm = torch.equal(torch.sort(perm).values, torch.arange(n, device=dev))
         consistent = torch.equal(ipiv_to_perm(res.ipiv).to(dev), perm)
-        finite = bool(torch.isfinite(res.lu).all())
+        finite = bool(torch.isfinite(lu).all())
         diff = (res.ipiv != ref.ipiv).nonzero()
         first_diff = int(diff[0]) if diff.numel() else None
         piv_eq = first_diff is None and torch.equal(res.perm, ref.perm)
-        fields = {}
         if bitwise:
             fields["bitwise_equal_classic"] = piv_eq and torch.equal(res.lu, ref.lu)
         med, runs = cuda_time(fac6, a0w, warmup=1, iters=3, setup=lambda x: (x.clone(),))[:2]
@@ -1470,6 +1706,19 @@ def main() -> int:
                           classic[corpus], bf16_policy_ms[corpus], same_pivots=True,
                           bitwise=True)
         defer_counts = defer_counts or cnt
+    # 8: the pair layout, MPF_BF16 beside phase 3 and ALL_BF16 beside phase
+    # 5, on the same matrices viewed as (n/2, 2, n): HPL-AI's pivots and row
+    # map equal to the 2D loop's
+    pair_counts = None
+    for policy, ref2d, ref_ms, tol in ((T.MPF_BF16, classic, bf16_policy_ms, NBE_TOL),
+                                       (T.ALL_BF16, classic_bf16, all_bf16_ms, NBE_TOL_BF16)):
+        fac8 = T.make_mpf(n, r=r, policy=policy)
+        want8 = fused_counts(n, r, bc, bf16=policy is T.ALL_BF16, pairs=True)
+        for corpus, gen in corpora:
+            cnt = variant_run(f"pairs_{policy.name}", fac8, policy, corpus, gen, want8, tol,
+                              ref2d[corpus], ref_ms[corpus], same_pivots=corpus == "hpl_ai",
+                              pairs=True)
+            pair_counts = pair_counts or cnt
     del classic, classic_bf16
     torch.cuda.empty_cache()
 
@@ -1477,7 +1726,7 @@ def main() -> int:
         counts = (main_counts if name in FUSED else masked_counts if name in MASKED
                   else lookahead_counts if name == "gemmx"
                   else split_counts if name in SPLIT else defer_counts if name in DEFER
-                  else bf16_counts)
+                  else pair_counts if name in PAIRS else bf16_counts)
         kern[name]["launches"] = int(counts[name])
         if name in FUSED and name in MASKED:
             kern[name]["launches_masked"] = int(masked_counts[name])
@@ -1485,7 +1734,8 @@ def main() -> int:
             kern[name]["launches_all_bf16"] = int(bf16_counts[name])
         paths = [p for p, ks in (("fused", FUSED), ("masked", MASKED), ("all_bf16", FUSED_BF16),
                                  ("lookahead", ("gemmx",)), ("split_exchange", SPLIT),
-                                 ("deferred_exchange", DEFER))
+                                 ("deferred_exchange", DEFER),
+                                 ("pair_layout", FUSED + FUSED_BF16 + PAIRS))
                  if name in ks]
         kern[name]["path"] = "+".join(paths) if paths else (
             "none (tests only)" if name == "panel_update_full" else "none (distributed path)")

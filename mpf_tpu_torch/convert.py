@@ -22,22 +22,21 @@ def policy_from_jax(p) -> PrecisionPolicy:
 
 def result_from_numpy(lu, ipiv, info, perm, device="cpu") -> MPFResult:
     """A JAX ``MPFResult`` given as numpy arrays -> the port's, on
-    ``device`` (``lu`` keeps its fp32 values; bf16 is widened to fp32)."""
-    lu = np.asarray(lu)
-    if lu.dtype != np.float32:
-        lu = lu.astype(np.float32)
+    ``device`` (``lu`` keeps its fp32 values and its shape, (n, n) or the
+    pair layout's (n/2, 2, n); bf16 is widened to fp32).  The arrays are
+    copied, so read-only views of JAX arrays cross too."""
     return MPFResult(
-        lu=torch.from_numpy(np.ascontiguousarray(lu)).to(device),
-        ipiv=torch.from_numpy(np.asarray(ipiv, np.int32)).to(device),
+        lu=torch.from_numpy(np.array(lu, np.float32)).to(device),
+        ipiv=torch.from_numpy(np.array(ipiv, np.int32)).to(device),
         info=torch.tensor(int(np.asarray(info)), dtype=torch.int32, device=device),
         perm=None if perm is None
-        else torch.from_numpy(np.asarray(perm, np.int32)).to(device),
+        else torch.from_numpy(np.array(perm, np.int32)).to(device),
     )
 
 
 def result_to_numpy(res: MPFResult) -> MPFResult:
-    """The port's result as numpy arrays (lu in fp32, the index arrays in
-    int32, info as a numpy int32 scalar)."""
+    """The port's result as numpy arrays (lu in fp32 and in its own shape,
+    the index arrays in int32, info as a numpy int32 scalar)."""
     return MPFResult(
         lu=res.lu.detach().float().cpu().numpy(),
         ipiv=res.ipiv.detach().cpu().numpy().astype(np.int32),

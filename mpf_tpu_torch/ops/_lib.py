@@ -41,7 +41,8 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 #: 3 for bf16 slabs, ALL_BF16; 11 in place of 4 under ``MPF_XCHG=split``;
 #: 13 for the lookahead driver's wide update; 14 for the deferred-overflow
 #: exchange), 5-9 the masked path (8b is kernel 8 without the inverses, for
-#: callers that need only the LU); 10 is on no driver path (tests only).
+#: callers that need only the LU); 10 is on no driver path (tests only);
+#: 15a-15d carry the pair-layout (n/2, 2, n) driver beside 1-6.
 KERNELS = (
     "strip_pivots",   # 1  A1 pivot search
     "rowblock",       # 2  A2 row-block assembly
@@ -61,6 +62,10 @@ KERNELS = (
     "copy_rows",      # 14 band -> overflow row-block copy
     "flush_overflow", # 14 overflow rows to their homes
     "panel_update_full",  # 10 B over the full slab width, one launch
+    "slab_extract",   # 15a pair layout: block-column slab out of the matrix
+    "slab_writeback", # 15b pair layout: the slab back into the matrix
+    "band_write",     # 15c pair layout: pivot rows over the band
+    "u12_inplace",    # 15d pair layout: U12 = L11^-1 A12 in place
 )
 
 launches = {k: 0 for k in KERNELS}
@@ -88,6 +93,8 @@ _SIGS = {
     "mpf_copy_rows": [I, I, P, L, I, I, I, P],
     "mpf_flush_overflow": [I, I, P, L, I, P, I, P],
     "mpf_panel_update_full": [I, I, I, P, L, I, P, I, P, P, I, I, P],
+    "mpf_block_copy": [I, I, P, L, P, L, I, P],
+    "mpf_u12_inplace": [I, I, P, L, P, L, I, P],
     "mpf_error_string": [I],
 }
 _RESTYPES = {"mpf_error_string": ctypes.c_char_p, "mpf_hgetf2_work_bytes": L}

@@ -172,28 +172,31 @@ def tri_inv_leaves(l: torch.Tensor, leaves) -> torch.Tensor:
     return out
 
 
+def _inv_rec(l11: torch.Tensor, inv: torch.Tensor, base: int, o: int, s: int) -> torch.Tensor:
+    """The recursion of :func:`unit_lower_inv_blocked` on the diagonal
+    block (o, s).  A module function, not a closure: a closure that calls
+    itself is a reference cycle, which would keep ``l11`` (a view of the
+    whole working matrix) alive until Python's cyclic collector ran."""
+    if s <= base:
+        return inv[o:o + s, o:o + s]
+    h = (s // 2 + base - 1) // base * base
+    if h >= s:
+        return inv[o:o + s, o:o + s]
+    ai = _inv_rec(l11, inv, base, o, h)
+    ci = _inv_rec(l11, inv, base, o + h, s - h)
+    bmat = l11[o + h:o + s, o:o + h]
+    with ieee_fp32():
+        x = (-(ci.float() @ (bmat.float() @ ai.float()))).to(l11.dtype)
+    out = torch.zeros((s, s), dtype=l11.dtype, device=l11.device)
+    out[:h, :h] = ai
+    out[h:, :h] = x
+    out[h:, h:] = ci
+    return out
+
+
 def unit_lower_inv_blocked(l11: torch.Tensor, base: int = 128) -> torch.Tensor:
     """Inverse of a unit-lower-triangular block by recursive 2x2 block
     partitioning; the <= ``base`` leaves come from one kernel-5 call."""
     n = l11.shape[0]
-    leaves = _leaves(n, base)
-    inv = tri_inv_leaves(l11, leaves)
-
-    def rec(o: int, s: int) -> torch.Tensor:
-        if s <= base:
-            return inv[o:o + s, o:o + s]
-        h = (s // 2 + base - 1) // base * base
-        if h >= s:
-            return inv[o:o + s, o:o + s]
-        ai = rec(o, h)
-        ci = rec(o + h, s - h)
-        bmat = l11[o + h:o + s, o:o + h]
-        with ieee_fp32():
-            x = (-(ci.float() @ (bmat.float() @ ai.float()))).to(l11.dtype)
-        out = torch.zeros((s, s), dtype=l11.dtype, device=l11.device)
-        out[:h, :h] = ai
-        out[h:, :h] = x
-        out[h:, h:] = ci
-        return out
-
-    return rec(0, n)
+    inv = tri_inv_leaves(l11, _leaves(n, base))
+    return _inv_rec(l11, inv, base, 0, n)

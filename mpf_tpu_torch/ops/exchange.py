@@ -1,6 +1,7 @@
 """Row exchanges (port of `mpf_tpu/ops/exchange.py`): the bounded row
 exchange once per block column (:func:`rows_exchange`, kernel 4,
-``csrc/exchange.cu``) and the deferred-overflow exchange's band copy and
+``csrc/exchange.cu``; :func:`rows_exchange3` on the pair-layout matrix)
+and the deferred-overflow exchange's band copy and
 flush (:func:`copy_rows_block`, :func:`flush_overflow`, kernel 14,
 ``csrc/overflow.cu``).
 
@@ -64,6 +65,21 @@ def rows_exchange(a: torch.Tensor, k: int, glist: torch.Tensor,
               glist.data_ptr(), dests.data_ptr(), pivrows.data_ptr(), a.element_size())
     _lib.counted_launch("rows_exchange")
     return pivrows
+
+
+def rows_exchange3(a3: torch.Tensor, k: int, glist: torch.Tensor,
+                   dests: torch.Tensor) -> torch.Tensor:
+    """:func:`rows_exchange` on the (n/2, 2, n) pair-layout matrix, row i
+    at ``a3[i // 2, i % 2]`` (`exchange.rows_exchange3`'s function): kernel
+    4 on its (n, n) view (:func:`mpf_tpu_torch.ops.pair3d.as_matrix`),
+    counted as ``rows_exchange``.  Returns the pivot rows (nr, n) in the
+    matrix's dtype, where the TPU kernel returned its fp32 staging, and
+    which :func:`mpf_tpu_torch.ops.pair3d.band_write_rows` writes over the
+    band.  The TPU kernel's 2-row windows and 16-slot rings existed for its
+    DMA granule."""
+    from mpf_tpu_torch.ops.pair3d import as_matrix  # pair3d's imports reach this module
+
+    return rows_exchange(as_matrix(a3), k, glist, dests)
 
 
 def _raw_rows(a: torch.Tensor, name: str) -> None:

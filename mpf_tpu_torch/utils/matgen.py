@@ -9,7 +9,8 @@
   the two packages can be compared on identical inputs.
 * :func:`hpl_ai_matrix_device`, :func:`random_dense_device` make the same
   classes directly on a device with a ``torch.Generator`` (an n = 65536
-  fp64 host matrix would be 34 GB).  Their values are not the JAX PRNG's:
+  fp64 host matrix would be 34 GB), in 2D or as the (n/2, 2, n) pair
+  layout (``pairs=True``).  Their values are not the JAX PRNG's:
   the class, the seed's determinism and the storage rounding are what
   carry over.
 """
@@ -82,7 +83,8 @@ def hpl_ai_matrix(n: int, seed: int = 0, dtype=np.float32) -> np.ndarray:
 _CHUNK_ELEMS = 1 << 26
 
 
-def _device_uniform(n: int, seed: int, dtype, device, finish, ext_rows: int = 0) -> torch.Tensor:
+def _device_uniform(n: int, seed: int, dtype, device, finish, ext_rows: int = 0,
+                    pairs: bool = False) -> torch.Tensor:
     """(n + ext_rows, n) matrix of ``dtype`` on ``device``: the first n rows
     from U[0, 1) fp32 values of a ``torch.Generator`` seeded with ``seed``
     on that device, made in row chunks (one fp32 chunk at a time, so the
@@ -91,7 +93,11 @@ def _device_uniform(n: int, seed: int, dtype, device, finish, ext_rows: int = 0)
     then cast to ``dtype`` once.  The chunk height depends on n only, so
     every dtype sees the same fp32 values.  The ``ext_rows`` rows below are
     zeros, made after the n rows, so the first n rows are bit-identical to
-    the ``ext_rows=0`` output."""
+    the ``ext_rows=0`` output.  ``pairs``: return the (n/2, 2, n) view of
+    the (n, n) output, row i at ``[i // 2, i % 2]`` (the same bits)."""
+    if pairs and (ext_rows or n % 2):
+        raise ValueError("the pair layout takes an even n and no overflow rows "
+                         f"(n={n}, ext_rows={ext_rows})")
     dev = torch.device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -103,30 +109,34 @@ def _device_uniform(n: int, seed: int, dtype, device, finish, ext_rows: int = 0)
                        device=dev)
         finish(x, r0)
         out[r0:r0 + x.shape[0]] = x
-    return out
+    return out.view(n // 2, 2, n) if pairs else out
 
 
 def hpl_ai_matrix_device(n: int, seed: int = 0, dtype=torch.float32,
-                         device="cuda:0", ext_rows: int = 0) -> torch.Tensor:
+                         device="cuda:0", ext_rows: int = 0,
+                         pairs: bool = False) -> torch.Tensor:
     """The :func:`hpl_ai_matrix` class made on ``device``: U[-0.5, 0.5)
     entries plus the diagonal shift n/4, computed in fp32 and cast to
-    ``dtype`` once (`mpf_tpu/utils/matgen.py:98-146`, 2D form).
-    ``ext_rows``: rows appended below (zeros), the deferred exchange's
-    pre-extended input (`models/mpf.py:defer_extension`); the first n rows
-    do not depend on it."""
+    ``dtype`` once (`mpf_tpu/utils/matgen.py:98-146`).  ``ext_rows``: rows
+    appended below (zeros), the deferred exchange's pre-extended input
+    (`models/mpf.py:defer_extension`); the first n rows do not depend on
+    it.  ``pairs=True``: the (n/2, 2, n) pair-layout view of the same
+    matrix (the pair-layout driver's input), bit for bit the 2D output;
+    the pair layout excludes ``ext_rows`` (ValueError)."""
     def finish(x, r0):
         x.sub_(0.5)
         x.diagonal(r0).add_(n / 4.0)
-    return _device_uniform(n, seed, dtype, device, finish, ext_rows)
+    return _device_uniform(n, seed, dtype, device, finish, ext_rows, pairs)
 
 
 def random_dense_device(n: int, seed: int = 0, dtype=torch.float32,
-                        device="cuda:0", ext_rows: int = 0) -> torch.Tensor:
+                        device="cuda:0", ext_rows: int = 0,
+                        pairs: bool = False) -> torch.Tensor:
     """The :func:`random_dense` class (uniform [0, 9.9]) made on
     ``device``, computed in fp32 and cast to ``dtype`` once
-    (`mpf_tpu/utils/matgen.py:149-168`, 2D form); ``ext_rows`` as in
+    (`mpf_tpu/utils/matgen.py:149-168`); ``ext_rows`` and ``pairs`` as in
     :func:`hpl_ai_matrix_device`."""
-    return _device_uniform(n, seed, dtype, device, lambda x, r0: x.mul_(9.9), ext_rows)
+    return _device_uniform(n, seed, dtype, device, lambda x, r0: x.mul_(9.9), ext_rows, pairs)
 
 
 def random_conditioned(n: int, kappa: float, seed: int = 0, dtype=np.float32) -> np.ndarray:

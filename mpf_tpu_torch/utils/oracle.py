@@ -93,9 +93,16 @@ def within_bf16_ulp(got: torch.Tensor, ref: torch.Tensor,
                     slack: torch.Tensor | None = None) -> UlpReport:
     """|got - ref| <= one bf16 ulp of the larger magnitude (plus ``slack``,
     e.g. :func:`sum_slack`), entry by entry, in fp64."""
+    return within_ulp(got, ref, slack, torch.bfloat16)
+
+
+def within_ulp(got: torch.Tensor, ref: torch.Tensor, slack: torch.Tensor | None = None,
+               dtype: torch.dtype = torch.bfloat16) -> UlpReport:
+    """:func:`within_bf16_ulp` with one ulp of ``dtype`` (bf16 or fp32)."""
     got, ref = got.double(), ref.double()
     mag = torch.maximum(got.abs(), ref.abs()).clamp_min(torch.finfo(torch.float32).tiny)
-    over = (got - ref).abs() - torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    ulp = torch.exp2(torch.floor(torch.log2(mag))) * torch.finfo(dtype).eps
+    over = (got - ref).abs() - ulp
     beyond = int((over > 0).sum())
     if slack is None:
         return UlpReport(beyond == 0, beyond, 0.0)

@@ -2,7 +2,7 @@
 
     python -m mpf_tpu_torch.utils.profiling --n 16384 --corpus hpl_ai \\
         [--policy mpf_bf16] [--no-pivot] [--lookahead] [--super S] \\
-        [--defer S] [--xchg split] [--runs 5] [--trace trace.json]
+        [--defer S] [--xchg split] [--pairs] [--runs 5] [--trace trace.json]
 
 Runs one warm-up factorization, then, with ``--runs N``, N more timed with
 CUDA events on fresh copies (their median, each run, each run's host issue
@@ -14,7 +14,12 @@ work on one stream does not overlap).  ``--lookahead`` runs the one-deep
 lookahead driver, ``--super S`` superblocks of width S, ``--defer S`` the
 deferred-overflow exchange in groups of S block columns, ``--xchg split``
 the split row exchange (kernel 11; the CLI sets ``MPF_XCHG``, which
-``make_mpf`` reads when it builds).  Needs a CUDA device.
+``make_mpf`` reads when it builds), ``--pairs`` the pair-layout driver on
+the same matrix as an (n/2, 2, n) tensor.  The matrix (seed 0) is made on
+the host (``matgen.hpl_ai_matrix`` / ``random_dense``) below n = 32768 and
+on the card above (``matgen.*_device``, as ``chip_smoke.py`` makes its n =
+65536 matrices: an fp64 host matrix of that size is 34 GB).  Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -26,11 +31,14 @@ import time
 
 import torch
 
+#: from this n the matrix is made on the card
+_DEVICE_GEN_N = 32768
+
 
 def profile_factorization(n: int, corpus: str = "hpl_ai", r: int = 128,
                           trace: str | None = None, policy: str = "mpf_bf16",
                           pivot: bool = True, runs: int = 0, lookahead: bool = False,
-                          super_block="auto", defer=None) -> dict:
+                          super_block="auto", defer=None, pairs: bool = False) -> dict:
     """Profile one factorization; the exchange mode is the caller's
     ``MPF_XCHG`` (:func:`mpf_tpu_torch.config.combined_exchange`)."""
     from mpf_tpu_torch import config, make_mpf
@@ -40,9 +48,15 @@ def profile_factorization(n: int, corpus: str = "hpl_ai", r: int = 128,
 
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA device")
-    gen = {"hpl_ai": matgen.hpl_ai_matrix, "uniform": matgen.random_dense}[corpus]
     pol = POLICIES[policy]
-    a0 = torch.from_numpy(gen(n, seed=0)).cuda().to(pol.working)  # factored in place
+    if n >= _DEVICE_GEN_N:
+        gen = {"hpl_ai": matgen.hpl_ai_matrix_device, "uniform": matgen.random_dense_device}
+        a0 = gen[corpus](n, seed=0, dtype=pol.working)
+    else:
+        gen = {"hpl_ai": matgen.hpl_ai_matrix, "uniform": matgen.random_dense}[corpus]
+        a0 = torch.from_numpy(gen(n, seed=0)).cuda().to(pol.working)  # factored in place
+    if pairs:
+        a0 = a0.view(n // 2, 2, n)
     fac = make_mpf(n, r=r, policy=pol, pivot=pivot, lookahead=lookahead,
                    super_block=super_block, defer=defer)
     xchg = "combined" if config.combined_exchange() else "split"
@@ -92,7 +106,7 @@ def profile_factorization(n: int, corpus: str = "hpl_ai", r: int = 128,
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15])
     return {"n": n, "corpus": corpus, "policy": policy, "r": r, "pivot": pivot,
             "lookahead": lookahead, "super_block": super_block, "defer": defer,
-            "xchg": xchg, **timed,
+            "xchg": xchg, "pairs": pairs, "device_gen": n >= _DEVICE_GEN_N, **timed,
             "wall_ms": wall * 1e3,
             "device_busy_ms": busy_ms, "device_span_ms": span_ms,
             "idle_share": 1.0 - busy_ms / span_ms if span_ms else None,
@@ -111,6 +125,7 @@ def main() -> None:
     ap.add_argument("--super", type=int, default=None, dest="super_block")
     ap.add_argument("--defer", type=int, default=None)
     ap.add_argument("--xchg", choices=("combined", "split"), default="combined")
+    ap.add_argument("--pairs", action="store_true")
     ap.add_argument("--runs", type=int, default=0)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
@@ -119,7 +134,7 @@ def main() -> None:
                                            policy=args.policy, pivot=not args.no_pivot,
                                            runs=args.runs, lookahead=args.lookahead,
                                            super_block=args.super_block or "auto",
-                                           defer=args.defer)))
+                                           defer=args.defer, pairs=args.pairs)))
 
 
 if __name__ == "__main__":

@@ -13,7 +13,8 @@ import torch
 from mpf_tpu_torch import (
     ALL_BF16, MPF_BF16, MPF_FP16, MPF_REF, PURE_FP32, make_mpf, mpf_factorize)
 from mpf_tpu_torch.ops import _lib
-from mpf_tpu_torch.ops.blas3 import _leaves, tri_inv_leaves, tri_inv_leaves_plain
+from mpf_tpu_torch.ops.blas3 import (
+    _leaves, tri_inv_leaves, tri_inv_leaves_plain, unit_lower_inv_blocked)
 from mpf_tpu_torch.ops.exchange import (
     copy_rows_block, copy_rows_block_plain, flush_overflow, flush_overflow_plain, rows_exchange,
     rows_exchange_plain)
@@ -28,10 +29,14 @@ from mpf_tpu_torch.ops.panel_fused import (
 from mpf_tpu_torch.ops.panel_pallas import (
     getf2_npv_block, getf2_npv_inv_block, getf2_npv_inv_plain, hgetf2_panel_plain,
     hgetf2_panel_swaps, laswp_apply, laswp_plain)
+from mpf_tpu_torch.ops.pair3d import (
+    band_write_rows, band_write_rows_plain, slab_extract, slab_extract_plain, slab_writeback,
+    slab_writeback_plain, u12_transform, u12_transform_plain)
 from mpf_tpu_torch.ops.panel_strip import SENT, strip_panel_pivots, strip_panel_pivots_plain
 from mpf_tpu_torch.precision import cast_to_panel
 from mpf_tpu_torch.utils import matgen
-from mpf_tpu_torch.utils.oracle import check_factorization_device, sum_slack, within_bf16_ulp
+from mpf_tpu_torch.utils.oracle import (
+    check_factorization_device, sum_slack, within_bf16_ulp, within_ulp)
 
 pytestmark = pytest.mark.gpu
 
@@ -551,3 +556,115 @@ def test_defer_bitwise_equals_classic_on_card(cuda, policy):
                                                        dtype=policy.working)])
     e = make_mpf(n, r=128, policy=policy, block=block, defer=S)(ext)
     assert e.lu.data_ptr() == ext.data_ptr() and torch.equal(e.lu, classic.lu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+def test_pair_copy_kernels_exact(cuda, dtype):
+    """Kernels 15a-15c on a (512, 2, 1024) pair matrix: the slab extract
+    and writeback (rows [130, 1024), columns [3, 258): unaligned rows take
+    the element copy; then rows [0, 1024), columns [256, 768)) and the
+    band write of 96 rows at row 128, bitwise equal to their plain
+    versions, one launch each."""
+    a3 = (torch.rand((512, 2, 1024), device=cuda) - 0.5).to(dtype)
+    x, y = a3.clone(), a3.clone()
+    _lib.reset_counts()
+    for k0, k, m, bc in ((130, 3, 894, 255), (0, 256, 1024, 512)):
+        s_k = slab_extract(x, k0, k, m, bc)
+        s_p = slab_extract_plain(y, k0, k, m, bc)
+        assert torch.equal(s_k, s_p) and s_k.is_contiguous()
+        new = (torch.rand((m, bc), device=cuda) - 0.5).to(dtype)
+        slab_writeback(x, new, k0, k)
+        slab_writeback_plain(y, new, k0, k)
+        assert torch.equal(x, y)
+    rows = (torch.rand((96, 1024), device=cuda) - 0.5).to(dtype)
+    band_write_rows(x, rows, 128)
+    band_write_rows_plain(y, rows, 128)
+    assert torch.equal(x, y)
+    assert [_lib.launches[k] for k in ("slab_extract", "slab_writeback", "band_write")] == [2, 2, 1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+@pytest.mark.parametrize("kw,w", [(1024, 3000), (100, 77), (256, 1024)])
+def test_u12_inplace_kernel(cuda, dtype, kw, w):
+    """Kernel 15d in place on the pair matrix against its plain version,
+    which computes the whole product before it writes (an out-of-place
+    reference, so a row read after another block wrote it would show):
+    within one ulp of the working dtype plus ``sum_slack``; everything
+    outside the block exact; ragged kw and w included."""
+    n = 4096
+    rng = np.random.default_rng(kw)
+    a3 = torch.from_numpy(rng.uniform(0, 9.9, (n, n)).astype(np.float32)).to(cuda).to(dtype)
+    a3 = a3.view(n // 2, 2, n)
+    lt = torch.tril(torch.from_numpy(rng.uniform(-1, 1, (kw, kw)).astype(np.float32)), -1)
+    linv = unit_lower_inv_blocked((lt / 4).to(cuda).to(dtype), base=128)
+    ks, e = 64, 64 + kw
+    x, y = a3.clone(), a3.clone()
+    a12 = a3.view(n, n)[ks:ks + kw, e:e + w].clone()
+    _lib.reset_counts()
+    u12_transform(x, linv, ks, e, w)
+    assert _lib.launches["u12_inplace"] == 1
+    u12_transform_plain(y, linv, ks, e, w)
+    xm, ym = x.view(n, n), y.view(n, n)
+    rep = within_ulp(xm[ks:ks + kw, e:e + w], ym[ks:ks + kw, e:e + w],
+                     sum_slack(torch.zeros((), device=cuda), linv, a12), dtype)
+    assert rep.ok, rep
+    xm[ks:ks + kw, e:e + w] = 0
+    ym[ks:ks + kw, e:e + w] = 0
+    assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("policy", [MPF_BF16, ALL_BF16])
+def test_pair3d_driver_on_card(cuda, policy):
+    """The pair-layout driver at n = 4096 (block 1024) against the 2D
+    loop on the HPL-AI matrix: pivots and row map equal, factors within
+    1e-3 (MPF_BF16) or 3e-2 (ALL_BF16: a few bf16 ulps of the n/4
+    diagonal) of max |lu|, since U12's sums differ from cuBLAS's; oracle at the
+    policy's bound, the exact launch counts, no plain call; the factors
+    come back (n/2, 2, n) in the input's memory."""
+    n = 4096
+    a = _hpl(n, 9, cuda)
+    ref = mpf_factorize(a, r=128, policy=policy)
+    a3 = a.to(policy.working).view(n // 2, 2, n).clone()
+    _lib.reset_counts()
+    res = make_mpf(n, r=128, policy=policy)(a3)
+    assert res.lu.data_ptr() == a3.data_ptr() and res.lu.shape == (n // 2, 2, n)
+    cols, panels = n // 1024, n // 128
+    want = dict(slab_extract=cols, slab_writeback=cols, rows_exchange=cols, band_write=cols,
+                u12_inplace=cols - 1, tri_inv=cols - 1, trailing_sub=cols - 1,
+                strip_pivots=panels, rowblock=panels)
+    want.update(dict(l21_trim=panels, upd_wide=panels - cols) if policy is ALL_BF16
+                else dict(panel_update=panels))
+    assert {k: v for k, v in _lib.launches.items() if v} == want
+    assert not any(_lib.plain_calls.values())
+    assert torch.equal(res.ipiv, ref.ipiv) and torch.equal(res.perm, ref.perm)
+    lu = res.lu.view(n, n).float()
+    tol = 5e-2 if policy is ALL_BF16 else 1e-3
+    d = float((lu - ref.lu.float()).abs().max())
+    assert d <= (3e-2 if policy is ALL_BF16 else 1e-3) * float(ref.lu.float().abs().max()), d
+    assert check_factorization_device(a, res.lu.view(n, n), res.ipiv, nbe_tol=tol).ok
+
+
+def test_factorization_leaves_no_device_memory(cuda):
+    """n = 4096 under ALL_BF16, classic and pair layout: once the result
+    and its input are dropped, ``torch.cuda.memory_allocated()`` is back
+    to its value before the call, with Python's cyclic collector off (a
+    reference cycle in the driver once held the matrix until the collector
+    ran)."""
+    import gc
+    n = 4096
+    a = _hpl(n, 2, cuda).to(BF)
+    fac = make_mpf(n, r=128, policy=ALL_BF16)
+    fac(a.clone())                       # build the kernels, warm the caches
+    for shape in ((n, n), (n // 2, 2, n)):
+        torch.cuda.synchronize()
+        gc.collect()
+        gc.disable()
+        try:
+            before = torch.cuda.memory_allocated()
+            work = a.clone().view(shape)
+            res = fac(work)
+            del res, work
+            torch.cuda.synchronize()
+            assert torch.cuda.memory_allocated() == before, shape
+        finally:
+            gc.enable()

@@ -202,14 +202,16 @@ def test_all_bf16_runs():
 
 
 def test_3d_and_panel_kernel_raise():
-    """3D input still raises; a custom ``panel_kernel`` replaces kernel 7
+    """A 3D input off the pair layout's fused gate raises the gate's
+    ValueError (here r = 128 > n = 8: n is no multiple of the block); a
+    custom ``panel_kernel`` replaces kernel 7
     in the masked path, which every block column then takes: with the
     port's ``panel_pivots_perm`` it equals the JAX factorizer given the JAX
     package's ``panel_pivots_perm`` (MPF_BF16, uniform, n = 96)."""
     from mpf_tpu.ops.getf2 import panel_pivots_perm as jax_ppp
     from mpf_tpu_torch.ops.getf2 import panel_pivots_perm
 
-    with pytest.raises(NotImplementedError, match="3D"):
+    with pytest.raises(ValueError, match="pair-layout \\(3D\\) input requires the fused"):
         T.mpf_factorize(torch.zeros(4, 2, 8))
     n = 96
     a = matgen.random_dense(n, seed=12).astype(np.float32)
