@@ -90,7 +90,17 @@ Phases, one line each:
   8b. the pair layout under ALL_BF16 at n = 65536 on HPL-AI from
      hpl_ai_matrix_device(pairs=True) (5b's matrix bit for bit): one timed
      run beside 5b's, pivots and row map equal to 5b's, launch counts,
-     oracle, resident and peak memory.
+     oracle, resident and peak memory;
+  2g. (run after 2f, before 3) kernels 16a-16k, the tools/ probes: every
+     module of mpf_tpu_torch/tools run as its entry point runs it, at the
+     TPU tools' default shapes, with the counts set to 0 before and read
+     after (each probe kernel launched); every leg applies the TPU tool's
+     own exactness check and holds the kernel to its plain version
+     (bitwise, or for 16d on integer operands, 16h and 16k within one bf16
+     ulp plus sum_slack or 1e-6 of max |ref| for fp32) and prints the
+     card's answer (us/row and GB/s against ring depth, us/step and TF/s
+     against extra MB/step, ns/visit, ns/entry, TF/s); every tensor freed
+     before phase 3.
 Every phase at n = 65536 prints the device memory resident before it.
 Then the card's name and power limit, one JSON line of per-kernel results
 (times, errors against the plain version, launches in the main path's run,
@@ -133,6 +143,20 @@ SPLIT = ("rows_gather", "rows_scatter")  # kernel 11, MPF_XCHG=split
 DEFER = ("copy_rows", "flush_overflow")  # kernel 14, the deferred exchange
 DEFER_S = 8                              # its group size in phases 7 and 7b
 PAIRS = ("slab_extract", "slab_writeback", "band_write", "u12_inplace")  # 15a-15d
+# 16a-16k, the tools/ probes, and the TPU pallas_call each replaces
+PROBES = {
+    "probe_sched_read": "tools/tpu_probe_r4.py:48",
+    "probe_bulk_copy": "tools/tpu_probe_r4.py:83",
+    "probe_row_ring": "tools/tpu_probe_r4.py:142",
+    "probe_overlap": "tools/tpu_probe_r4.py:215",
+    "probe_window_rmw": "tools/tpu_granule_r5.py:122",
+    "probe_window_gather": "tools/tpu_granule_r5.py:149",
+    "probe_relayout": "tools/tpu_3d_micro.py:65",
+    "probe_gemm3d": "tools/tpu_3d_micro.py:107",
+    "probe_xsel": "tools/tpu_xsel_micro.py:120",
+    "probe_refview": "tools/tpu_refview_r5.py:79",
+    "probe_dot": "tools/tpu_crash_bisect_r5.py:42",
+}
 BF = torch.bfloat16
 
 
@@ -324,6 +348,7 @@ def main() -> int:
         "slab_writeback": "mpf_tpu/ops/pair3d.py:113",
         "band_write": "mpf_tpu/ops/pair3d.py:205",
         "u12_inplace": "mpf_tpu/ops/pair3d.py:281",
+        **PROBES,
     }
     source = {
         "strip_pivots": "mpf_tpu_torch/csrc/strip_pivots.cu",
@@ -345,12 +370,17 @@ def main() -> int:
         "flush_overflow": "mpf_tpu_torch/csrc/overflow.cu",
         "panel_update_full": "mpf_tpu_torch/csrc/panel_update_full.cu",
         **{k: "mpf_tpu_torch/csrc/pair3d.cu" for k in PAIRS},
+        **{k: "mpf_tpu_torch/csrc/probes.cu" for k in PROBES},
+        "probe_overlap": "mpf_tpu_torch/csrc/probes_gemm.cu",
+        "probe_dot": "mpf_tpu_torch/csrc/probes_gemm.cu",
+        "probe_gemm3d": "mpf_tpu_torch/csrc/gemm_sub.cu",
     }
 
     def record(name, abs_err, rel_err, ms, plain_ms, bnd, library_ms, **extra):
         kern[name] = {"name": name, "route": "cuda", "source": source[name],
                       "replaces": replaces[name], "launches": 0,
-                      "max_abs_err": float(abs_err), "rel_err": float(rel_err),
+                      "max_abs_err": float(abs_err),
+                      "rel_err": None if rel_err is None else float(rel_err),
                       "ms": float(ms), "plain_ms": float(plain_ms),
                       "bound_ms": float(bnd[0]), "bound_by": bnd[1],
                       "library_ms": None if library_ms is None else float(library_ms),
@@ -1274,6 +1304,45 @@ def main() -> int:
     del hpl, slab0, uni, dyp, p16
     torch.cuda.empty_cache()
 
+    # ---------------- phase 2g: the tools/ probes (16a-16k) ----------------
+    # The path of this slice is the probes' entry points: each module's run()
+    # at the TPU tool's default shapes, with the counts set to 0 just before
+    # and read just after.  Each leg applies the tool's own check, holds the
+    # kernel's output (from that run, no extra launch) to its plain version
+    # and returns its bytes and operations, from which the bound is stated
+    # here; the heaviest leg of each kernel gives its row of the JSON line.
+    from mpf_tpu_torch.tools import (
+        crash_bisect_r5, granule_r5, micro_3d, probe_r4, refview_r5, xsel_micro)
+    t2g = time.perf_counter()
+    _lib.reset_counts()
+    probe_legs = []
+    for mod in (probe_r4, granule_r5, refview_r5, xsel_micro, micro_3d, crash_bisect_r5):
+        probe_legs += mod.run(dev)
+        torch.cuda.empty_cache()
+    probe_counts = {k: _lib.launches[k] for k in PROBES}
+    for lg in probe_legs:
+        lg["bound"] = bound(lg["bytes"], lg["fp32_ops"], lg["bf16_ops"])
+        phase(f"k16 {lg['kernel']} {lg['leg'].strip()}", lg["ok"], ms=f"{lg['ms']:.4f}",
+              bound_ms=f"{lg['bound'][0]:.4f}", max_abs_err=f"{lg['max_abs_err']:.3e}",
+              rel_err="none" if lg["rel_err"] is None else f"{lg['rel_err']:.3e}")
+    phase("k16_probe_path", all(probe_counts[k] > 0 for k in PROBES),
+          seconds=f"{time.perf_counter() - t2g:.1f}", launches=json.dumps(probe_counts))
+    for name in PROBES:
+        mine = [lg for lg in probe_legs if lg["kernel"] == name]
+        head = max(mine, key=lambda lg: lg["bound"][0])
+        rels = [lg["rel_err"] for lg in mine if lg["rel_err"] is not None]
+        record(name, max(lg["max_abs_err"] for lg in mine), max(rels) if rels else None,
+               head["ms"], head["plain_ms"], head["bound"], head["library_ms"],
+               headline_leg=head["leg"].strip(),
+               legs=[{"leg": lg["leg"].strip(), "ms": lg["ms"], "plain_ms": lg["plain_ms"],
+                      "library_ms": lg["library_ms"], "bound_ms": lg["bound"][0],
+                      "bound_by": lg["bound"][1], "max_abs_err": lg["max_abs_err"],
+                      "rel_err": lg["rel_err"]}
+                     for lg in mine])
+    del probe_legs
+    torch.cuda.empty_cache()
+    print(f"[INFO] resident_gib_after_2g={torch.cuda.memory_allocated() / 2**30:.2f}", flush=True)
+
     # ---------------- phase 3: the main path --------------------------------
     fac = T.make_mpf(n, r=r, policy=T.MPF_BF16)
     main_counts = None
@@ -1723,6 +1792,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     for name in _lib.KERNELS:
+        if name in PROBES:
+            kern[name].update(launches=int(probe_counts[name]), launches_per_factorization=0,
+                              path="tools (python -m mpf_tpu_torch.tools.*, phase 2g)")
+            continue
         counts = (main_counts if name in FUSED else masked_counts if name in MASKED
                   else lookahead_counts if name == "gemmx"
                   else split_counts if name in SPLIT else defer_counts if name in DEFER

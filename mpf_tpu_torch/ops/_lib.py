@@ -42,7 +42,9 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 #: 13 for the lookahead driver's wide update; 14 for the deferred-overflow
 #: exchange), 5-9 the masked path (8b is kernel 8 without the inverses, for
 #: callers that need only the LU); 10 is on no driver path (tests only);
-#: 15a-15d carry the pair-layout (n/2, 2, n) driver beside 1-6.
+#: 15a-15d carry the pair-layout (n/2, 2, n) driver beside 1-6; 16a-16k
+#: are the ``tools/`` design probes (``mpf_tpu_torch/tools``), on no driver
+#: path.
 KERNELS = (
     "strip_pivots",   # 1  A1 pivot search
     "rowblock",       # 2  A2 row-block assembly
@@ -66,6 +68,17 @@ KERNELS = (
     "slab_writeback", # 15b pair layout: the slab back into the matrix
     "band_write",     # 15c pair layout: pivot rows over the band
     "u12_inplace",    # 15d pair layout: U12 = L11^-1 A12 in place
+    "probe_sched_read",     # 16a probe_r4 smem: three schedule entries
+    "probe_bulk_copy",      # 16b probe_r4 hbm2smem: TMA bulk copy on an mbarrier
+    "probe_row_ring",       # 16c probe_r4 rowdma: strided rows through a ring
+    "probe_overlap",        # 16d probe_r4 overlap: GEMM steps beside streamed reads
+    "probe_window_rmw",     # 16e granule_r5: window read-modify-write
+    "probe_window_gather",  # 16f granule_r5: read-only window visits
+    "probe_relayout",       # 16g micro_3d: collapse / split copies, tchunk transpose
+    "probe_gemm3d",         # 16h micro_3d: C3 - A3 @ B (kernel 6 on the views)
+    "probe_xsel",           # 16i xsel_micro: dynamic rows of an on-chip window
+    "probe_refview",        # 16j refview_r5: 16e on the (N/g, g, W) view
+    "probe_dot",            # 16k crash_bisect_r5: bf16(A @ B)
 )
 
 launches = {k: 0 for k in KERNELS}
@@ -95,6 +108,15 @@ _SIGS = {
     "mpf_panel_update_full": [I, I, I, P, L, I, P, I, P, P, I, I, P],
     "mpf_block_copy": [I, I, P, L, P, L, I, P],
     "mpf_u12_inplace": [I, I, P, L, P, L, I, P],
+    "mpf_probe_sched_read": [I, P, P, P, I, P],
+    "mpf_probe_bulk_copy": [P, I, I, P, P, I, P],
+    "mpf_probe_row_ring": [I, I, P, L, I, I, I, I, P, P],
+    "mpf_probe_window_rmw": [I, I, L, P, P, I, I, P],
+    "mpf_probe_window_gather": [I, I, I, I, P, P, I, I, P, P],
+    "mpf_probe_transpose": [I, I, P, L, P, L, I, P],
+    "mpf_probe_xsel": [I, I, I, I, P, P, P, P],
+    "mpf_probe_dot": [I, I, I, P, L, P, L, P, L, P],
+    "mpf_probe_overlap": [I, I, I, P, P, P, I, P, I, L, I, I, P, P, P],
     "mpf_error_string": [I],
 }
 _RESTYPES = {"mpf_error_string": ctypes.c_char_p, "mpf_hgetf2_work_bytes": L}

@@ -668,3 +668,153 @@ def test_factorization_leaves_no_device_memory(cuda):
             assert torch.cuda.memory_allocated() == before, shape
         finally:
             gc.enable()
+
+
+# --------------------------------------------------------------------------
+# Kernels 16a-16k: the tools/ probes (mpf_tpu_torch/tools)
+# --------------------------------------------------------------------------
+
+_PROBES = tuple(k for k in _lib.KERNELS if k.startswith("probe_"))
+
+
+def _gen(cuda, seed):
+    return torch.Generator(device=cuda).manual_seed(seed)
+
+
+@pytest.mark.parametrize("ns", [64, 4096, 262144])
+def test_probe_schedule_kernels_exact(cuda, ns):
+    """16a and 16b on random int32 schedules (wrapping sums) and x: bitwise
+    their plain versions; 16b's bulk copy from offsets 512 and 0."""
+    from mpf_tpu_torch.tools.probe_r4 import (
+        bulk_copy, bulk_copy_plain, sched_read, sched_read_plain)
+    g = torch.Generator().manual_seed(ns)
+    s = torch.randint(-2**31, 2**31 - 1, (ns,), generator=g, dtype=torch.int32).to(cuda)
+    x = torch.randn((8, 128), generator=g).to(cuda)
+    assert torch.equal(sched_read(s, x), sched_read_plain(s, x))
+    for off, count in ((512, 512), (0, 16)):
+        if off + count <= ns:
+            assert torch.equal(bulk_copy(s, x, off, count), bulk_copy_plain(s, x, off, count))
+
+
+@pytest.mark.parametrize("w,depth", [(3000, 1), (3000, 4), (8192, 32), (512, 48)])
+def test_probe_row_ring_exact(cuda, w, depth):
+    """16c: every row read through the ring; out is the row the tool's
+    formula names, bitwise, for ragged row chunks and every depth."""
+    from mpf_tpu_torch.tools.probe_r4 import ROW_STRIDE, row_ring, row_ring_plain, row_ring_target
+    n, nrows = 1000, 300
+    src = torch.randn((n, 1, w), generator=_gen(cuda, w + depth), device=cuda)
+    out = row_ring(src, nrows, depth)
+    assert torch.equal(out, src[(row_ring_target(nrows, depth) * ROW_STRIDE) % n])
+    assert torch.equal(out, row_ring_plain(src, nrows, depth))
+
+
+def test_probe_overlap_sum(cuda):
+    """16d: the step sum within ``overlap_slack`` of the plain version on
+    random bf16 operands (ragged ti), bitwise the same with extra bytes
+    streamed (0.1 and 1 MB a step) as with none, and the checksum of the
+    streamed bytes bitwise the plain version's (rows of 16 KB pieces, and
+    of 2000 bytes, whose chunks end in a short piece)."""
+    from mpf_tpu_torch.tools.probe_r4 import overlap, overlap_plain, overlap_slack
+    gen = _gen(cuda, 16)
+    l = torch.randn((200, 256), generator=gen, device=cuda).to(BF)
+    u = torch.randn((256, 384), generator=gen, device=cuda).to(BF)
+    steps = 8
+    for a in (torch.randn((512, 1024), generator=gen, device=cuda).to(BF),
+              torch.randn((300, 1000), generator=gen, device=cuda).to(BF)):
+        got, sink = overlap(l, u, a, steps, 0)
+        ref, ref_sink = overlap_plain(l, u, a, steps, 0)
+        assert abs(float(got) - float(ref)) <= overlap_slack(l, u, steps)
+        assert torch.equal(sink, ref_sink) and not sink.any()
+        for mb in (0.1, 1):
+            out, sink = overlap(l, u, a, steps, mb)
+            assert torch.equal(out, got)
+            assert torch.equal(sink, overlap_plain(l, u, a, steps, mb)[1]) and sink.any()
+
+
+@pytest.mark.parametrize("dtype,g,w", [(BF, 16, 1024), (BF, 2, 1000), (torch.float32, 1, 999),
+                                       (BF, 2, 77)])
+@pytest.mark.parametrize("depth", [1, 4, 16])
+def test_probe_window_kernels_exact(cuda, dtype, g, w, depth):
+    """16e and 16f (and 16j, 16e on a view): read-modify-write and
+    read-only visits bitwise their plain versions, vector and element
+    paths (odd window sizes)."""
+    from mpf_tpu_torch.tools.granule_r5 import (
+        rmw_plain, window_gather, window_gather_plain, window_rmw)
+    from mpf_tpu_torch.tools.refview_r5 import refview_rmw, refview_rmw_plain
+    nwin, e = 300, 200
+    rng = np.random.default_rng(g * w + depth)
+    ids = torch.from_numpy(np.sort(rng.choice(nwin, e, replace=False)).astype(np.int32))
+    ids = ids.to(cuda)
+    x = torch.randn((nwin, g, w), generator=_gen(cuda, depth), device=cuda).to(dtype)
+    y = x.clone()
+    assert torch.equal(window_gather(x, ids, depth), window_gather_plain(x, ids))
+    assert torch.equal(window_rmw(x, ids, depth), rmw_plain(y, ids))
+    m, mp = x.view(nwin * g, w), y.clone().view(nwin * g, w)
+    assert torch.equal(refview_rmw(m, ids, g, depth), refview_rmw_plain(mp, ids, g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+def test_probe_relayout_and_gemm3d(cuda, dtype):
+    """16g bitwise (ragged 32 x 32 transpose tiles) and 16h within one
+    bf16 ulp plus sum_slack (bf16) or 1e-6 of max |ref| (fp32) of their
+    plain versions, at ragged shapes."""
+    from mpf_tpu_torch.tools.micro_3d import (
+        gemm3d, gemm3d_close, gemm3d_plain, relayout, relayout_plain)
+    gen = _gen(cuda, 17)
+    a = torch.randn((40, 2, 72), generator=gen, device=cuda).to(dtype)
+    for mode, inp in (("collapse", a), ("split", a.view(80, 72)), ("tchunk", a)):
+        assert torch.equal(relayout(inp, mode), relayout_plain(inp, mode))
+    a3 = torch.randn((100, 2, 96), generator=gen, device=cuda).to(dtype)
+    b = torch.randn((96, 136), generator=gen, device=cuda).to(dtype)
+    c3 = torch.randn((100, 2, 136), generator=gen, device=cuda).to(dtype)
+    got, ref = gemm3d(a3, b, c3), gemm3d_plain(a3, b, c3)
+    assert gemm3d_close(got, ref, a3, b, c3)
+
+
+@pytest.mark.parametrize("mode", ["masked", "dma", "store", "dstore"])
+def test_probe_xsel_exact(cuda, mode):
+    """16i on a (16, 300) window (a ragged last block) with 500 entries:
+    bitwise its plain version."""
+    from mpf_tpu_torch.tools.xsel_micro import xsel, xsel_plain
+    rng = np.random.default_rng(5)
+    ids = torch.from_numpy(rng.integers(0, 16, 500).astype(np.int32)).to(cuda)
+    x = torch.randn((16, 300), generator=_gen(cuda, 18), device=cuda).to(BF)
+    assert torch.equal(xsel(x, ids, mode), xsel_plain(x, ids, mode))
+
+
+@pytest.mark.parametrize("s,k,w", [(1000, 1000, 1000), (1024, 1024, 1280)])
+def test_probe_dot_ragged(cuda, s, k, w):
+    """16k (tile_mma's store epilogue) at a ragged shape and a tool shape:
+    within one bf16 ulp plus sum_slack of the plain version."""
+    from mpf_tpu_torch.tools.crash_bisect_r5 import dot, dot_close, dot_plain
+    gen = _gen(cuda, 19)
+    a = torch.randn((s, k), generator=gen, device=cuda).to(BF)
+    b = torch.randn((k, w), generator=gen, device=cuda).to(BF)
+    assert dot_close(dot(a, b), dot_plain(a, b), a, b)
+
+
+def test_probe_wrappers_never_take_the_plain_version(cuda):
+    """Every probe wrapper on CUDA tensors launches its kernel once and
+    calls no plain version."""
+    from mpf_tpu_torch.tools import crash_bisect_r5, granule_r5, micro_3d, probe_r4, refview_r5
+    from mpf_tpu_torch.tools import xsel_micro
+    _lib.reset_counts()
+    s = torch.arange(4096, dtype=torch.int32, device=cuda)
+    x = torch.zeros((8, 128), device=cuda)
+    probe_r4.sched_read(s, x)
+    probe_r4.bulk_copy(s, x)
+    probe_r4.row_ring(torch.ones((64, 1, 1024), device=cuda), 64, 4)
+    lb = torch.ones((128, 128), dtype=BF, device=cuda)
+    probe_r4.overlap(lb, lb, torch.ones((64, 512), dtype=BF, device=cuda), 2, 0.1)
+    a = torch.zeros((8, 2, 256), dtype=BF, device=cuda)
+    ids = torch.tensor([1, 3, 6], dtype=torch.int32, device=cuda)
+    granule_r5.window_rmw(a, ids)
+    granule_r5.window_gather(a, ids)
+    micro_3d.relayout(a, "tchunk")
+    micro_3d.gemm3d(a[:, :, :128], lb, a[:, :, :128].contiguous())
+    xsel_micro.xsel(a.view(16, 256), ids, "masked")
+    refview_r5.refview_rmw(a.view(16, 256), ids, 2)
+    crash_bisect_r5.dot(lb, lb)
+    torch.cuda.synchronize()
+    assert {k: _lib.launches[k] for k in _PROBES} == {k: 1 for k in _PROBES}
+    assert not any(_lib.plain_calls.values())
