@@ -7,7 +7,9 @@ Phases, one line each:
      source, all started together) from csrc/;
   2. kernels 1-6 of the fused path against their plain PyTorch versions on
      the card, at the fused path's shapes (n = 16384, r = 128, block 1024,
-     MPF_BF16);
+     MPF_BF16); kernel 6's bf16-operand instance (the Hopper TMA + wgmma
+     routine) printed with its TF/s and share of the 989 TFLOP/s bf16 peak
+     beside the library call's time;
   2b. kernels 7, 8, 8b and 9 of the masked path against their plain
      versions at the masked path's shapes (m = 16384, r = 128; the slab
      (16384, 1024) and the whole matrix for the row exchange);
@@ -20,7 +22,8 @@ Phases, one line each:
      tri_inv_slack), which exceeds an ulp where the result cancels, on
      several seeds, printing the largest share of that bound used; frozen
      rows and the columns left of the panel exact, and a copy without the
-     update pass shown to fail;
+     update pass shown to fail; kernel 6's bf16-C instance's TF/s and share
+     of the bf16 peak printed;
   3. the fused path: mpf_factorize at n = 16384, MPF_BF16, r = 128 on the
      HPL-AI matrix and on the uniform (pivot-heavy) matrix: device fp64
      oracle (nbe <= 1e-3), perm consistent with ipiv, kernels 1-6 launched
@@ -43,7 +46,8 @@ Phases, one line each:
      15360, w = 14336, K = 1024, 1024 band rows), each instance (bf16
      operands and fp32 C, fp32 operands, bf16 C) bitwise equal to kernel 6
      on the same region followed by kernel 4, and against its plain version
-     (fp32 C: 1e-6 of max |a|; bf16 C: one bf16 ulp plus sum_slack);
+     (fp32 C: 1e-6 of max |a|; bf16 C: one bf16 ulp plus sum_slack), the
+     bf16-operand instances' TF/s and share of the bf16 peak printed;
      kernel 11's gather, scatter from the band and scatter of values
      bitwise equal to their plain versions, fp32 and bf16;
   6. the lookahead driver (kernel 13) under MPF_BF16 at n = 16384 on both
@@ -102,6 +106,9 @@ Phases, one line each:
      against extra MB/step, ns/visit, ns/entry, TF/s); every tensor freed
      before phase 3.
 Every phase at n = 65536 prints the device memory resident before it.
+Every factorization phase prints the bf16 GEMM operands that kernels 6 and
+13 had to copy because TMA could not read them in place (operand_copies),
+and requires 0.
 Then the card's name and power limit, one JSON line of per-kernel results
 (times, errors against the plain version, launches in the main path's run,
 the least time the card could take and the time of a PyTorch call that
@@ -402,6 +409,17 @@ def main() -> int:
             print(f"[INFO] library call unavailable: {exc}", flush=True)
             return None
 
+    def bf16_rate(tag, ops, ms, library_ms):
+        """Print a bf16 tensor-core instance's TF/s, its share of the bf16
+        peak and its time beside the library call's; return the TF/s."""
+        tf = ops / ms / 1e9
+        lib = ("none" if library_ms is None
+               else f"{library_ms:.3f} ms, kernel / library {ms / library_ms:.2f}")
+        print(f"[INFO] {tag}: {ms:.3f} ms, {tf:.1f} TF/s, "
+              f"{100 * tf * 1e12 / BF16_FLOPS:.1f}% of the {BF16_FLOPS / 1e12:.0f} TFLOP/s "
+              f"bf16 peak; library {lib}", flush=True)
+        return tf
+
     def panel_ops(m, off, r):
         """fp32 operations of an r-column pivoted panel LU whose diagonal
         is at row off of m rows: a divide and an update of the later
@@ -602,8 +620,9 @@ def main() -> int:
     ms6f = event_ms(lambda: trailing_gemm_sub(a_k, l21f, u12f, e), 2)
     lib6f = library(lambda: c6.addmm_(l21f, u12f, alpha=-1), 2)
     mt = n - e
+    tf6 = bf16_rate("k6 bf16 operands, fp32 C", 2 * mt * mt * bc, ms, lib6)
     record("trailing_sub", err6, rel6, ms, pms,
-           bound(8 * mt * mt + 2 * 2 * mt * bc, 0, 2 * mt * mt * bc), lib6,
+           bound(8 * mt * mt + 2 * 2 * mt * bc, 0, 2 * mt * mt * bc), lib6, tflops=tf6,
            fp32_ms=ms6f, fp32_library_ms=lib6f,
            fp32_bound_ms=bound(8 * mt * mt + 2 * 4 * mt * bc, 2 * mt * mt * bc)[0])
     del a_k, a_p, l21, u12, l21f, u12f, c6
@@ -876,8 +895,9 @@ def main() -> int:
     pms = event_ms(lambda: trailing_gemm_sub_plain(a_p, l21, u12, e))
     c6b = a_p[e:, e:]
     lib6b = library(lambda: torch.addmm(c6b, l21, u12, alpha=-1))
+    tf6b = bf16_rate("k6 bf16 operands, bf16 C", 2 * mt * mt * bc, ms, lib6b)
     record_bf16("trailing_sub", err6b, ms, pms,
-                bound(4 * mt * mt + 2 * 2 * mt * bc, 0, 2 * mt * mt * bc), lib6b)
+                bound(4 * mt * mt + 2 * 2 * mt * bc, 0, 2 * mt * mt * bc), lib6b, tflops=tf6b)
     del a_k, a_p, l21, u12, c6b, hpl_b, slab0_b, uni_b
     torch.cuda.empty_cache()
 
@@ -972,16 +992,19 @@ def main() -> int:
         b13 = bound(2 * el * mt * wt + l21.element_size() * (mt * bc + bc * wt)
                     + el * x_bytes, ops if tag == "fp32_operands" else 0,
                     0 if tag == "fp32_operands" else ops)
+        tf13 = None
+        if tag != "fp32_operands":
+            tf13 = bf16_rate(f"k13 {tag} (+ exchange)", ops, ms13[tag], lib)
         if tag == "bf16_operands":
             record("gemmx", err13, err13 / float(a13.abs().max()), ms13[tag], pms, b13, lib,
-                   moved_rows=moved, kernel6_then_kernel4_ms=serial_ms)
+                   moved_rows=moved, kernel6_then_kernel4_ms=serial_ms, tflops=tf13)
         elif tag == "fp32_operands":
             kern["gemmx"].update(fp32_ms=ms13[tag], fp32_plain_ms=pms, fp32_library_ms=lib,
                                  fp32_bound_ms=b13[0], fp32_max_abs_err=err13,
                                  fp32_kernel6_then_kernel4_ms=serial_ms)
         else:
             record_bf16("gemmx", err13, ms13[tag], pms, b13, lib,
-                        kernel6_then_kernel4_ms=serial_ms)
+                        kernel6_then_kernel4_ms=serial_ms, tflops=tf13)
         print(f"[INFO] k13 {tag}: {ms13[tag]:.3f} ms, kernel 6 then kernel 4 "
               f"{serial_ms:.3f} ms, bound {b13[0]:.3f} ms ({b13[1]})", flush=True)
         del x, y, reg
@@ -1359,6 +1382,7 @@ def main() -> int:
         first_s = time.perf_counter() - t1
         launched = dict(_lib.launches)
         plain = dict(_lib.plain_calls)
+        copies = _lib.copies["gemm_operand"]
         if main_counts is None:
             main_counts = launched
         counters_ok = (all(launched[k] > 0 for k in FUSED) and not any(plain.values())
@@ -1373,12 +1397,12 @@ def main() -> int:
         bf16_policy_ms[corpus] = med * 1e3
         phase(f"mpf_factorize_{corpus}",
               rep.ok and is_perm and consistent and finite and counters_ok
-              and int(res.info) == 0,
+              and int(res.info) == 0 and copies == 0,
               n=n, policy="mpf_bf16", r=r, nbe=f"{rep.normwise_backward_err:.3e}",
               max_abs=f"{rep.max_abs_err:.3e}", perm_ok=is_perm and consistent,
               info=int(res.info), launches=json.dumps(launched, separators=(",", ":")),
-              plain_calls=sum(plain.values()), first_run_s=f"{first_s:.3f}",
-              median_ms=f"{med * 1e3:.2f}",
+              plain_calls=sum(plain.values()), operand_copies=copies,
+              first_run_s=f"{first_s:.3f}", median_ms=f"{med * 1e3:.2f}",
               runs_ms="/".join(f"{t * 1e3:.2f}" for t in runs),
               tflops=f"{tflops(n, med):.2f}", card=f"'{smi}'")
         classic[corpus] = res
@@ -1405,6 +1429,7 @@ def main() -> int:
         first_s = time.perf_counter() - t1
         launched = dict(_lib.launches)
         plain = dict(_lib.plain_calls)
+        copies = _lib.copies["gemm_operand"]
         bf16 = policy.working == BF
         masked = MASKED_BF16 if bf16 else MASKED
         want = set(masked if pivot else ("tri_inv", "trailing_sub")
@@ -1431,13 +1456,14 @@ def main() -> int:
                       "tflops": f"{tflops(n4, med):.2f}"}
         phase(f"masked_{tag}_{corpus}",
               rep.ok and is_perm and consistent and finite and counters_ok
-              and int(res.info) == 0 and (pivot or ident),
+              and int(res.info) == 0 and (pivot or ident) and copies == 0,
               n=n4, policy=policy.name, r=r4, block=block, pivot=pivot,
               nbe=f"{rep.normwise_backward_err:.3e}", max_abs=f"{rep.max_abs_err:.3e}",
               perm_ok=is_perm and consistent, ipiv_identity=ident, info=int(res.info),
               fused_panels=fused_panels, masked_panels=masked_panels,
               launches=json.dumps(launched, separators=(",", ":")),
-              plain_calls=sum(plain.values()), first_run_s=f"{first_s:.3f}", **fields,
+              plain_calls=sum(plain.values()), operand_copies=copies,
+              first_run_s=f"{first_s:.3f}", **fields,
               card=f"'{smi}'")
         del a0, work, res
         torch.cuda.empty_cache()
@@ -1476,6 +1502,7 @@ def main() -> int:
         first_s = time.perf_counter() - t1
         launched = dict(_lib.launches)
         plain = dict(_lib.plain_calls)
+        copies = _lib.copies["gemm_operand"]
         bf16_counts = bf16_counts or launched
         counters_ok = (not any(plain.values())
                        and all(launched[k] == want5.get(k, 0) for k in _lib.KERNELS))
@@ -1488,13 +1515,13 @@ def main() -> int:
         med, runs = cuda_time(fac5, a0b, warmup=1, iters=3, setup=lambda x: (x.clone(),))[:2]
         phase(f"all_bf16_{corpus}",
               rep5.ok and is_perm and consistent and finite and counters_ok and in_place
-              and int(res.info) == 0,
+              and int(res.info) == 0 and copies == 0,
               n=n, policy="all_bf16", r=r, nbe=f"{rep5.normwise_backward_err:.3e}",
               max_abs=f"{rep5.max_abs_err:.3e}", perm_ok=is_perm and consistent,
               info=int(res.info), launches=json.dumps(launched, separators=(",", ":")),
-              plain_calls=sum(plain.values()), first_run_s=f"{first_s:.3f}",
-              median_ms=f"{med * 1e3:.2f}", runs_ms="/".join(f"{t * 1e3:.2f}" for t in runs),
-              mpf_bf16_median_ms=f"{bf16_policy_ms[corpus]:.2f}",
+              plain_calls=sum(plain.values()), operand_copies=copies,
+              first_run_s=f"{first_s:.3f}", median_ms=f"{med * 1e3:.2f}",
+              runs_ms="/".join(f"{t * 1e3:.2f}" for t in runs), mpf_bf16_median_ms=f"{bf16_policy_ms[corpus]:.2f}",
               tflops=f"{tflops(n, med):.2f}", card=f"'{smi}'")
         classic_bf16[corpus] = res
         all_bf16_ms[corpus] = med * 1e3
@@ -1523,6 +1550,7 @@ def main() -> int:
     big_ms = start.elapsed_time(end)
     fac_peak = torch.cuda.max_memory_allocated()
     launched = dict(_lib.launches)
+    copies = _lib.copies["gemm_operand"]
     want5b = fused_counts(nb, r, bc, bf16=True)
     counters_ok = (not any(_lib.plain_calls.values())
                    and all(launched[k] == want5b.get(k, 0) for k in _lib.KERNELS))
@@ -1534,9 +1562,10 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     rep5b = check_factorization_device(big_a, lu, ipiv, nbe_tol=NBE_TOL_BF16, chunk=2048)
     oracle_peak = torch.cuda.max_memory_allocated()
-    phase("all_bf16_n65536_hpl_ai", rep5b.ok and counters_ok and finite and info == 0,
+    phase("all_bf16_n65536_hpl_ai",
+          rep5b.ok and counters_ok and finite and info == 0 and copies == 0,
           n=nb, policy="all_bf16", r=r, nbe=f"{rep5b.normwise_backward_err:.3e}",
-          info=info, launches=json.dumps(launched, separators=(",", ":")),
+          info=info, launches=json.dumps(launched, separators=(",", ":")), operand_copies=copies,
           ms=f"{big_ms:.2f}", tflops=f"{tflops(nb, big_ms / 1e3):.2f}",
           generate_s=f"{gen_s:.2f}", resident_gib_before=f"{resident / 2**30:.2f}",
           peak_gib_factorization=f"{fac_peak / 2**30:.2f}",
@@ -1558,6 +1587,7 @@ def main() -> int:
     la_ms = start.elapsed_time(end)
     la_peak = torch.cuda.max_memory_allocated()
     launched = dict(_lib.launches)
+    copies = _lib.copies["gemm_operand"]
     want6b = fused_counts(nb, r, bc, bf16=True, lookahead=True)
     counters_ok = (not any(_lib.plain_calls.values())
                    and all(launched[k] == want6b.get(k, 0) for k in _lib.KERNELS))
@@ -1566,9 +1596,10 @@ def main() -> int:
     finite = bool(torch.isfinite(lu).all())
     rep6b = check_factorization_device(big_a, lu, res.ipiv, nbe_tol=NBE_TOL_BF16, chunk=2048)
     phase("lookahead_all_bf16_n65536_hpl_ai",
-          rep6b.ok and counters_ok and finite and info == 0 and same_piv,
+          rep6b.ok and counters_ok and finite and info == 0 and same_piv and copies == 0,
           n=nb, policy="all_bf16", r=r, nbe=f"{rep6b.normwise_backward_err:.3e}", info=info,
           pivots_equal_5b=same_piv, launches=json.dumps(launched, separators=(",", ":")),
+          operand_copies=copies,
           ms=f"{la_ms:.2f}", classic_5b_ms=f"{big_ms:.2f}",
           tflops=f"{tflops(nb, la_ms / 1e3):.2f}", resident_gib_before=f"{resident / 2**30:.2f}",
           peak_gib_factorization=f"{la_peak / 2**30:.2f}", card=f"'{smi}'")
@@ -1595,6 +1626,7 @@ def main() -> int:
     d_ms = start.elapsed_time(end)
     d_peak = torch.cuda.max_memory_allocated()
     launched = dict(_lib.launches)
+    copies = _lib.copies["gemm_operand"]
     want7b = fused_counts(nb, r, bc, bf16=True, defer_s=DEFER_S)
     counters_ok = (not any(_lib.plain_calls.values())
                    and all(launched[k] == want7b.get(k, 0) for k in _lib.KERNELS))
@@ -1604,10 +1636,12 @@ def main() -> int:
     finite = bool(torch.isfinite(res.lu).all())
     rep7b = check_factorization_device(big_a, res.lu, res.ipiv, nbe_tol=NBE_TOL_BF16, chunk=2048)
     phase("defer_all_bf16_n65536_hpl_ai",
-          rep7b.ok and counters_ok and finite and info == 0 and same_piv and in_place,
+          rep7b.ok and counters_ok and finite and info == 0 and same_piv and in_place
+          and copies == 0,
           n=nb, policy="all_bf16", r=r, defer=DEFER_S, overflow_rows=ov7,
           nbe=f"{rep7b.normwise_backward_err:.3e}", info=info, pivots_and_perm_equal_5b=same_piv,
           pre_extended_in_place=in_place, launches=json.dumps(launched, separators=(",", ":")),
+          operand_copies=copies,
           ms=f"{d_ms:.2f}", classic_5b_ms=f"{big_ms:.2f}",
           tflops=f"{tflops(nb, d_ms / 1e3):.2f}", generate_s=f"{gen_s:.2f}",
           resident_gib_before=f"{resident / 2**30:.2f}",
@@ -1635,6 +1669,7 @@ def main() -> int:
     p_ms = start.elapsed_time(end)
     p_peak = torch.cuda.max_memory_allocated()
     launched = dict(_lib.launches)
+    copies = _lib.copies["gemm_operand"]
     want8b = fused_counts(nb, r, bc, bf16=True, pairs=True)
     counters_ok = (not any(_lib.plain_calls.values())
                    and all(launched[k] == want8b.get(k, 0) for k in _lib.KERNELS))
@@ -1645,10 +1680,12 @@ def main() -> int:
     finite = bool(torch.isfinite(lu8b).all())
     rep8b = check_factorization_device(big_a, lu8b, res.ipiv, nbe_tol=NBE_TOL_BF16, chunk=2048)
     phase("pairs_all_bf16_n65536_hpl_ai",
-          rep8b.ok and counters_ok and finite and info == 0 and same_piv and in_place,
+          rep8b.ok and counters_ok and finite and info == 0 and same_piv and in_place
+          and copies == 0,
           n=nb, policy="all_bf16", r=r, nbe=f"{rep8b.normwise_backward_err:.3e}", info=info,
           pivots_and_perm_equal_5b=same_piv, pair_layout_in_place=in_place,
-          launches=json.dumps(launched, separators=(",", ":")), ms=f"{p_ms:.2f}",
+          launches=json.dumps(launched, separators=(",", ":")), operand_copies=copies,
+          ms=f"{p_ms:.2f}",
           classic_5b_ms=f"{big_ms:.2f}", ratio_to_5b=f"{p_ms / big_ms:.4f}",
           tflops=f"{tflops(nb, p_ms / 1e3):.2f}", generate_s=f"{gen_s:.2f}",
           resident_gib_before=f"{resident / 2**30:.2f}",
@@ -1690,6 +1727,7 @@ def main() -> int:
         first_s = time.perf_counter() - t1
         launched = dict(_lib.launches)
         plain = dict(_lib.plain_calls)
+        copies = _lib.copies["gemm_operand"]
         counters_ok = (not any(plain.values())
                        and all(launched[k] == want.get(k, 0) for k in _lib.KERNELS))
         fields = {}
@@ -1713,15 +1751,15 @@ def main() -> int:
         med, runs = cuda_time(fac6, a0w, warmup=1, iters=3, setup=lambda x: (x.clone(),))[:2]
         phase(f"{tag}_{corpus}",
               rep6.ok and is_perm and consistent and finite and counters_ok
-              and int(res.info) == 0 and (piv_eq or not same_pivots)
+              and int(res.info) == 0 and (piv_eq or not same_pivots) and copies == 0
               and fields.get("bitwise_equal_classic", True),
               n=n, policy=policy.name, r=r, nbe=f"{rep6.normwise_backward_err:.3e}",
               perm_ok=is_perm and consistent, info=int(res.info),
               pivots_equal_classic=piv_eq, first_differing_pivot=first_diff, **fields,
               launches=json.dumps(launched, separators=(",", ":")),
-              plain_calls=sum(plain.values()), first_run_s=f"{first_s:.3f}",
-              median_ms=f"{med * 1e3:.2f}", runs_ms="/".join(f"{t * 1e3:.2f}" for t in runs),
-              classic_median_ms=f"{ref_ms:.2f}", tflops=f"{tflops(n, med):.2f}",
+              plain_calls=sum(plain.values()), operand_copies=copies,
+              first_run_s=f"{first_s:.3f}", median_ms=f"{med * 1e3:.2f}",
+              runs_ms="/".join(f"{t * 1e3:.2f}" for t in runs), classic_median_ms=f"{ref_ms:.2f}", tflops=f"{tflops(n, med):.2f}",
               card=f"'{smi}'")
         del a0, a0w, work, res
         torch.cuda.empty_cache()

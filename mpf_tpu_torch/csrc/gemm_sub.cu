@@ -8,19 +8,21 @@
 // epilogue `(a.astype(f32) - acc).astype(out.dtype)`).
 //
 // What bounds it on the H100: this is the O(n^3) part of the factorization
-// (2 (n-e)^2 * bc flops per block column).  With bf16 operands the tensor
-// cores could run it at hundreds of TFLOP/s; this first version stages
-// 128x128x32 tiles through shared memory synchronously and issues warp-level
-// mma.sync, so it is bound by shared-memory staging and latency, not by the
-// tensor cores.  The fp32-operand form (PURE_FP32, MPF_REF) is FFMA bound.
+// (2 (n-e)^2 * bc flops per block column).  With bf16 operands the products
+// are tensor-core bound and C's read-modify-write bytes bound, of the same
+// order at K = 1024 (gemm_sm90.cuh says how its design treats both); the
+// fp32-operand form (PURE_FP32, MPF_REF) is FFMA bound.
 //
-// Design: the tile routine in common.cuh, one 128x128 output tile per
-// block, C read and written once per tile in the epilogue (the TPU kernel's
-// point: no separate product array and subtract pass).  The same routine,
-// with a row mask, is the update half of the streaming panel update
-// (panel_update.cu), and without one the update pass of kernel 12
-// (l21_trim.cu).
-#include "common.cuh"
+// Design: the bf16-operand instances (fp32 C, bf16 C) run the Hopper
+// routine of gemm_sm90.cuh: TMA tile loads into an mbarrier ring, a
+// producer warpgroup and two wgmma consumer warpgroups, one persistent
+// block per SM, C read and written once per tile in the epilogue (the TPU
+// kernel's point: no separate product array and subtract pass).  The
+// fp32-operand instance runs the FFMA tile routine of common.cuh
+// (tile_ffma), one 64 x 64 tile a block.  launch_gemm_sub also serves the
+// streaming panel update's masked update (panel_update.cu: tile_mma with a
+// row mask, or tile_ffma).
+#include "gemm_sm90.cuh"
 
 namespace gemm {
 
@@ -38,41 +40,70 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 int launch_gemm_sub(int mode, int M, int N, int K, const void* A, i64 lda,
-                    const void* B, i64 ldb, void* C, int c_bf16, i64 ldc,
-                    const int* pos, int thr, cudaStream_t stream) {
+                    const void* B, i64 ldb, float* C, i64 ldc, const int* pos, int thr,
+                    cudaStream_t stream) {
   if (M <= 0 || N <= 0) return (int)cudaGetLastError();
-  typedef __nv_bfloat16 bf;
-  dim3 grid_mma((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  if (c_bf16) {
-    if (mode != 0) return (int)cudaErrorInvalidValue;
-    gemm_sub_kernel<bf, bf, true, bf><<<grid_mma, kThreads, 0, stream>>>(
-        M, N, K, (const bf*)A, lda, (const bf*)B, ldb, (bf*)C, ldc, pos, thr);
-  } else if (mode == 2) {
+  if (mode == 2) {
     dim3 grid((N + kFN - 1) / kFN, (M + kFM - 1) / kFM);
     gemm_sub_kernel<float, float, false, float><<<grid, kThreads, 0, stream>>>(
-        M, N, K, (const float*)A, lda, (const float*)B, ldb, (float*)C, ldc, pos, thr);
-  } else if (mode == 0) {
-    gemm_sub_kernel<bf, bf, true, float><<<grid_mma, kThreads, 0, stream>>>(
-        M, N, K, (const bf*)A, lda, (const bf*)B, ldb, (float*)C, ldc, pos, thr);
+        M, N, K, (const float*)A, lda, (const float*)B, ldb, C, ldc, pos, thr);
   } else if (mode == 1) {
-    gemm_sub_kernel<float, float, true, float><<<grid_mma, kThreads, 0, stream>>>(
-        M, N, K, (const float*)A, lda, (const float*)B, ldb, (float*)C, ldc, pos, thr);
+    dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+    gemm_sub_kernel<float, float, true, float><<<grid, kThreads, 0, stream>>>(
+        M, N, K, (const float*)A, lda, (const float*)B, ldb, C, ldc, pos, thr);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
+namespace sm90 {
+
+template <typename TC>
+__global__ void __launch_bounds__(kThreads, 1)
+    trailing_kernel(const __grid_constant__ CUtensorMap tmA,
+                    const __grid_constant__ CUtensorMap tmB, int M, int N, int K,
+                    TC* __restrict__ C, i64 ldc) {
+  run<TC, false>(&tmA, &tmB, M, N, K, C, ldc);
+}
+
+template <typename TC>
+int launch(int M, int N, int K, const void* A, i64 lda, const void* B, i64 ldb, TC* C,
+           i64 ldc, cudaStream_t st) {
+  const long long tiles = tile_count(M, N, K);
+  if (tiles == 0) return (int)cudaGetLastError();
+  CUtensorMap ta, tb;
+  int err = encode_operands(&ta, &tb, M, N, K, A, lda, B, ldb);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(trailing_kernel<TC>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, nsm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  const int grid = (int)(tiles < nsm ? tiles : nsm);
+  trailing_kernel<TC><<<grid, kThreads, kSmem, st>>>(ta, tb, M, N, K, C, ldc);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace sm90
+
 }  // namespace gemm
 
-// C[0:M, 0:N] -= A[0:M, 0:K] @ B[0:K, 0:N]; mode as in launch_gemm_sub
-// (0: bf16 operands on the tensor cores, 2: fp32 operands on FFMA); C is
-// bf16 when c_bf16 (bf16 operands only), else fp32.
+// C[0:M, 0:N] -= A[0:M, 0:K] @ B[0:K, 0:N] with fp32 sums.  mode 0: bf16
+// operands on the tensor cores (the Hopper routine; A and B at 16-byte
+// aligned bases with row strides that are multiples of 8 elements, else the
+// tensor maps fail to encode and the call returns an error), C fp32, or bf16
+// when c_bf16; mode 2: fp32 operands on FFMA, C fp32.
 MPF_API int mpf_trailing_sub(int mode, int M, int N, int K, const void* A, i64 lda,
                              const void* B, i64 ldb, void* C, int c_bf16, i64 ldc,
                              void* stream) {
-  return gemm::launch_gemm_sub(mode, M, N, K, A, lda, B, ldb, C, c_bf16, ldc, nullptr, 0,
-                               (cudaStream_t)stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (mode == 0)
+    return c_bf16 ? gemm::sm90::launch(M, N, K, A, lda, B, ldb, (__nv_bfloat16*)C, ldc, st)
+                  : gemm::sm90::launch(M, N, K, A, lda, B, ldb, (float*)C, ldc, st);
+  if (mode != 2 || c_bf16) return (int)cudaErrorInvalidValue;
+  return gemm::launch_gemm_sub(mode, M, N, K, A, lda, B, ldb, (float*)C, ldc, nullptr, 0, st);
 }
 
 MPF_API const char* mpf_error_string(int code) {

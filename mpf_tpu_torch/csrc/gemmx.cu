@@ -15,28 +15,33 @@
 // C (MPF_BF16); fp32 operands on FFMA, never TF32 (PURE_FP32, MPF_REF); bf16
 // operands with bf16 C, rounded once after the fp32 subtract (ALL_BF16).
 //
-// What bounds it on the H100: the GEMM, as for kernel 6 (the O(n^3) part;
-// with bf16 operands bytes of C at K = 1024 in principle, the staging of
-// this simple tile routine in practice); the exchange adds
-// 2 * (nr + moved rows) * w * (4 or 2) bytes.
+// What bounds it on the H100: the GEMM, as for kernel 6 (the O(n^3) part:
+// with bf16 operands tensor-core bound and C's read-modify-write bytes
+// bound, of the same order at K = 1024); the exchange adds
+// 2 * (nr + moved rows) * w * (4 or 2) bytes, after a grid barrier, so it
+// does not overlap the GEMM.
 //
 // Design: one cooperative launch of as many blocks as can be resident
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor: the tile routine's static
-// shared memory and registers set the blocks per SM; a grid that cannot be
-// co-resident is refused, never run).  The blocks stride over the output
-// tiles with kernel 6's own tile routine (tile_mma / tile_ffma in
-// common.cuh), so every entry is bitwise equal to kernel 6's.  Then a grid
-// barrier, the gather, a grid barrier, the scatter.  The barriers order
-// every GEMM write before any exchange read and every gather read before
-// any scatter write; the scatter reads only band rows, which it never
-// writes.  The exchange reads through L2 (__ldcg), never the read-only
-// path, because the rows it reads were written earlier in this launch.
-// The TPU kernel's schedule machinery (granule windows, window rings,
-// strip-completion gates, the pair-major strip order) has no counterpart:
-// rows are contiguous and the barriers take its place.
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor with the dynamic shared
+// memory the routine takes; a grid that cannot be co-resident is refused,
+// never run).  The bf16-operand instances run kernel 6's Hopper routine
+// (gemm_sm90.cuh: TMA ring, producer and wgmma consumer warpgroups,
+// persistent tiles, one block an SM), the FFMA instance kernel 6's
+// tile_ffma striding over the tiles; each output entry is summed in the
+// same order as kernel 6's, so every entry is bitwise equal to kernel 6's.
+// The producer warpgroup does not leave early: every thread meets the
+// others again with the same register count and reaches both grid
+// barriers.  Then a grid barrier, the gather, a grid barrier, the scatter.
+// The barriers order every GEMM write before any exchange read and every
+// gather read before any scatter write; the scatter reads only band rows,
+// which it never writes.  The exchange reads through L2 (__ldcg), never
+// the read-only path, because the rows it reads were written earlier in
+// this launch.  The TPU kernel's schedule machinery (granule windows,
+// window rings, strip-completion gates, the pair-major strip order) has no
+// counterpart: rows are contiguous and the barriers take its place.
 #include <cooperative_groups.h>
 
-#include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -51,8 +56,8 @@ __device__ __forceinline__ void copy_row_l2(E* dst, const E* src, int w) {
   int nv = vec ? w / kPer : 0;
   const uint4* s4 = reinterpret_cast<const uint4*>(src);
   uint4* d4 = reinterpret_cast<uint4*>(dst);
-  for (int i = threadIdx.x; i < nv; i += gemm::kThreads) d4[i] = __ldcg(s4 + i);
-  for (int i = nv * kPer + threadIdx.x; i < w; i += gemm::kThreads) dst[i] = __ldcg(src + i);
+  for (int i = threadIdx.x; i < nv; i += blockDim.x) d4[i] = __ldcg(s4 + i);
+  for (int i = nv * kPer + threadIdx.x; i < w; i += blockDim.x) dst[i] = __ldcg(src + i);
 }
 
 // The exchange after the GEMM, kept out of line: inlined into the tile loop,
@@ -74,60 +79,92 @@ __device__ __noinline__ void exchange(E* a, i64 ld, int w, int nr, int k,
   }
 }
 
-template <typename TA, typename TB, bool kMma, typename TC, typename E>
+// the FFMA instance: kernel 6's tile_ffma striding over the tiles
 __global__ void __launch_bounds__(gemm::kThreads)
-    gemmx_kernel(int M, int N, int K, const TA* __restrict__ A, i64 lda,
-                 const TB* __restrict__ B, i64 ldb, TC* C, i64 ld, E* a, int w, int nr,
-                 int k, const int* __restrict__ glist, const int* __restrict__ dests,
-                 E* __restrict__ pivrows) {
+    gemmx_ffma_kernel(int M, int N, int K, const float* __restrict__ A, i64 lda,
+                      const float* __restrict__ B, i64 ldb, float* C, i64 ld, uint32_t* a,
+                      int w, int nr, int k, const int* __restrict__ glist,
+                      const int* __restrict__ dests, uint32_t* __restrict__ pivrows) {
   using namespace gemm;
-  constexpr int tm = kMma ? kBM : kFM, tn = kMma ? kBN : kFN;
-  const int tiles_n = (N + tn - 1) / tn;
-  const int tiles = ((M + tm - 1) / tm) * tiles_n;
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int m0 = (t / tiles_n) * tm, n0 = (t % tiles_n) * tn;
-    if constexpr (kMma)
-      tile_mma<TA, TB, TC>(M, N, K, A, lda, B, ldb, C, ld, nullptr, 0, m0, n0);
-    else
-      tile_ffma<TA, TB>(M, N, K, A, lda, B, ldb, C, ld, nullptr, 0, m0, n0);
-  }
+  const int tiles_n = (N + kFN - 1) / kFN;
+  const int tiles = ((M + kFM - 1) / kFM) * tiles_n;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+    tile_ffma<float, float>(M, N, K, A, lda, B, ldb, C, ld, nullptr, 0, (t / tiles_n) * kFM,
+                            (t % tiles_n) * kFN);
   // nr is the same for every block, so no barrier is left waiting
   if (nr > 0) exchange(a, ld, w, nr, k, glist, dests, pivrows);
 }
 
-template <typename TA, typename TB, bool kMma, typename TC, typename E>
-int launch(int M, int N, int K, const void* A_, i64 lda, const void* B_, i64 ldb, void* a_,
-           i64 ld, int r0, int c0, int w, int nr, int k, const int* glist, const int* dests,
-           void* piv_, cudaStream_t st) {
-  auto kern = gemmx_kernel<TA, TB, kMma, TC, E>;
+// the bf16-operand instances: kernel 6's Hopper routine on the tiles
+template <typename TC, typename E>
+__global__ void __launch_bounds__(gemm::sm90::kThreads, 1)
+    gemmx_sm90_kernel(const __grid_constant__ CUtensorMap tmA,
+                      const __grid_constant__ CUtensorMap tmB, int M, int N, int K, TC* C,
+                      i64 ld, E* a, int w, int nr, int k, const int* __restrict__ glist,
+                      const int* __restrict__ dests, E* __restrict__ pivrows) {
+  gemm::sm90::run<TC, true>(&tmA, &tmB, M, N, K, C, ld);
+  if (nr > 0) exchange(a, ld, w, nr, k, glist, dests, pivrows);
+}
+
+// one cooperative launch of `kern` (threads, smem), as many blocks as the
+// work has tiles or band rows, at most as many as can be resident
+int launch_coop(const void* kern, int threads, int smem, long long tiles, int nr, void** args,
+                cudaStream_t st) {
   int dev = 0, nsm = 0, occ = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, gemm::kThreads, 0);
+  if (smem > 0) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, threads, smem);
   if (err != cudaSuccess) return (int)err;
   if (occ < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  constexpr int tm = kMma ? gemm::kBM : gemm::kFM, tn = kMma ? gemm::kBN : gemm::kFN;
-  const long long tiles =
-      (M > 0 && N > 0) ? (long long)((M + tm - 1) / tm) * ((N + tn - 1) / tn) : 0;
   const long long want = tiles > nr ? tiles : nr;
-  int G = (int)(want < (long long)occ * nsm ? want : (long long)occ * nsm);
+  const int G = (int)(want < (long long)occ * nsm ? want : (long long)occ * nsm);
   if (G < 1) return (int)cudaGetLastError();  // nothing to do
-  const TA* A = (const TA*)A_;
-  const TB* B = (const TB*)B_;
-  E* a = (E*)a_;
-  TC* C = (TC*)a_ + (i64)r0 * ld + c0;
-  E* pivrows = (E*)piv_;
-  void* args[] = {&M, &N, &K, &A, &lda, &B, &ldb, &C, &ld, &a, &w, &nr, &k,
-                  &glist, &dests, &pivrows};
-  err = cudaLaunchCooperativeKernel((void*)kern, dim3(G), dim3(gemm::kThreads), args, 0, st);
+  err = cudaLaunchCooperativeKernel(kern, dim3(G), dim3(threads), args, smem, st);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+template <typename TC, typename E>
+int launch_sm90(int M, int N, int K, const void* A, i64 lda, const void* B, i64 ldb,
+                void* a_, i64 ld, int r0, int c0, int w, int nr, int k, const int* glist,
+                const int* dests, void* piv_, cudaStream_t st) {
+  namespace s9 = gemm::sm90;
+  CUtensorMap ta, tb;
+  int err = s9::encode_operands(&ta, &tb, M, N, K, A, lda, B, ldb);
+  if (err) return err;
+  E* a = (E*)a_;
+  TC* C = (TC*)a_ + (i64)r0 * ld + c0;
+  E* pivrows = (E*)piv_;
+  void* args[] = {&ta, &tb, &M, &N, &K, &C, &ld, &a, &w, &nr, &k, &glist, &dests, &pivrows};
+  return launch_coop((const void*)gemmx_sm90_kernel<TC, E>, s9::kThreads, s9::kSmem,
+                     s9::tile_count(M, N, K), nr, args, st);
+}
+
+int launch_ffma(int M, int N, int K, const void* A_, i64 lda, const void* B_, i64 ldb,
+                void* a_, i64 ld, int r0, int c0, int w, int nr, int k, const int* glist,
+                const int* dests, void* piv_, cudaStream_t st) {
+  using namespace gemm;
+  const float* A = (const float*)A_;
+  const float* B = (const float*)B_;
+  uint32_t* a = (uint32_t*)a_;
+  float* C = (float*)a_ + (i64)r0 * ld + c0;
+  uint32_t* pivrows = (uint32_t*)piv_;
+  const long long tiles =
+      (M > 0 && N > 0) ? (long long)((M + kFM - 1) / kFM) * ((N + kFN - 1) / kFN) : 0;
+  void* args[] = {&M, &N, &K, &A, &lda, &B, &ldb, &C, &ld, &a, &w, &nr, &k,
+                  &glist, &dests, &pivrows};
+  return launch_coop((const void*)gemmx_ffma_kernel, kThreads, 0, tiles, nr, args, st);
+}
+
 }  // namespace
 
-// mode 0: bf16 operands on the tensor cores; 2: fp32 operands on FFMA.  The
-// matrix a is fp32, or bf16 when c_bf16 (mode 0 only); row stride ld, row
+// mode 0: bf16 operands on the tensor cores (A and B as mpf_trailing_sub's
+// mode 0 takes them); 2: fp32 operands on FFMA.  The matrix a is fp32, or bf16 when c_bf16 (mode 0 only); row stride ld, row
 // width w (the exchange copies w elements a row).  nr = 0: no exchange
 // (glist, dests and pivrows unused).
 MPF_API int mpf_gemmx(int mode, int M, int N, int K, const void* A, i64 lda, const void* B,
@@ -138,15 +175,14 @@ MPF_API int mpf_gemmx(int mode, int M, int N, int K, const void* A, i64 lda, con
   typedef __nv_bfloat16 bf;
   if (c_bf16) {
     if (mode != 0) return (int)cudaErrorInvalidValue;
-    return launch<bf, bf, true, bf, uint16_t>(M, N, K, A, lda, B, ldb, a, ld, r0, c0, w, nr,
-                                              k, glist, dests, pivrows, st);
+    return launch_sm90<bf, uint16_t>(M, N, K, A, lda, B, ldb, a, ld, r0, c0, w, nr, k, glist,
+                                     dests, pivrows, st);
   }
   if (mode == 0)
-    return launch<bf, bf, true, float, uint32_t>(M, N, K, A, lda, B, ldb, a, ld, r0, c0, w,
-                                                 nr, k, glist, dests, pivrows, st);
+    return launch_sm90<float, uint32_t>(M, N, K, A, lda, B, ldb, a, ld, r0, c0, w, nr, k,
+                                        glist, dests, pivrows, st);
   if (mode == 2)
-    return launch<float, float, false, float, uint32_t>(M, N, K, A, lda, B, ldb, a, ld, r0,
-                                                        c0, w, nr, k, glist, dests, pivrows,
-                                                        st);
+    return launch_ffma(M, N, K, A, lda, B, ldb, a, ld, r0, c0, w, nr, k, glist, dests, pivrows,
+                       st);
   return (int)cudaErrorInvalidValue;
 }

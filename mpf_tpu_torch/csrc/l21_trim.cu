@@ -26,10 +26,7 @@
 // shared memory as fp32, fp32 FMA over exact bf16 products, one rounding to
 // bf16.  (2) upd_wide_kernel: the shared mma.sync tile routine
 // (gemm::tile_mma) with the bf16-C epilogue and no row mask, one 128 x 128
-// output tile per block.  Its body is that of kernel 6's bf16-C instance
-// (gemm_sub_kernel<bf, bf, true, bf>, pos = nullptr); it stays a __global__
-// of its own on purpose, so that a profile, which names kernels, tells
-// kernel 12's update time from kernel 6's trailing GEMM.
+// output tile per block.
 #include "common.cuh"
 
 namespace {

@@ -34,7 +34,6 @@ MPF_API int mpf_panel_update(int m, int bc, int r, float* slab, i64 ld, int jj0,
   if (err != 0) return err;
   int w = bc - jj0 - r;
   if (w <= 0) return (int)cudaGetLastError();
-  return gemm::launch_gemm_sub(gemm_bf16 ? 1 : 2, m, w, r, l21buf, r,
-                               rowblock + jj0 + r, bc, slab + jj0 + r, 0, ld, pos, thr,
-                               st);
+  return gemm::launch_gemm_sub(gemm_bf16 ? 1 : 2, m, w, r, l21buf, r, rowblock + jj0 + r, bc,
+                               slab + jj0 + r, ld, pos, thr, st);
 }

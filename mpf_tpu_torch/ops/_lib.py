@@ -83,6 +83,9 @@ KERNELS = (
 
 launches = {k: 0 for k in KERNELS}
 plain_calls = {k: 0 for k in KERNELS}
+#: Copies made by :func:`gemm_operand`: bf16 GEMM operands of kernels 6 and
+#: 13 that TMA could not read in place (0 on the main path).
+copies = {"gemm_operand": 0}
 
 P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argument types of each C entry point (pointers and the stream as c_void_p)
@@ -126,7 +129,7 @@ _lock = threading.Lock()
 
 
 def reset_counts() -> None:
-    for d in (launches, plain_calls):
+    for d in (launches, plain_calls, copies):
         for k in d:
             d[k] = 0
 
@@ -228,6 +231,30 @@ def on_cuda(*tensors) -> bool:
     if kinds == {"cuda"}:
         return True
     raise ValueError(f"tensors must all be on the CPU or all on CUDA, got {kinds}")
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """True when TMA can read the 2-D matrix ``t`` in place: a 16-byte
+    aligned base, a row stride that is a multiple of 16 bytes and at least
+    the row's width, unit column stride."""
+    es = t.element_size()
+    return (t.dim() == 2 and t.stride(1) == 1 and t.data_ptr() % 16 == 0
+            and (t.stride(0) * es) % 16 == 0 and t.stride(0) >= t.shape[1])
+
+
+def gemm_operand(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 GEMM operand of kernels 6 and 13 as their tensor maps take it:
+    ``t`` itself when it is not bf16 or :func:`tma_ready`, else a new
+    zero-padded ``(rows, ceil8(cols))`` bf16 buffer holding ``t`` in its
+    leading columns (counted in ``copies``).  The caller passes the
+    operand's logical sizes beside the buffer's row stride."""
+    if t.dtype != torch.bfloat16 or tma_ready(t):
+        return t
+    rows, cols = t.shape
+    buf = torch.zeros((rows, -(-cols // 8) * 8), dtype=t.dtype, device=t.device)
+    buf[:, :cols] = t
+    copies["gemm_operand"] += 1
+    return buf
 
 
 def fms(b: torch.Tensor, m: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

@@ -13,8 +13,9 @@ The TPU kernel threads the exchange's window DMAs between its GEMM tiles,
 each gated on the completion of the row strip it touches; its schedules
 (`build_exchange_schedules`, window rings, the pair-major strip order, the
 gate margin) have no counterpart here.  The CUDA kernel runs the GEMM tiles
-with kernel 6's tile routine, then, after grid barriers, the gather and the
-scatter.
+with kernel 6's device routine (the Hopper TMA + wgmma routine for bf16
+operands, FFMA tiles for fp32), then, after grid barriers, the gather and
+the scatter.
 """
 
 from __future__ import annotations
@@ -57,7 +58,8 @@ def gemm_trailing(a, l21, u12, r0: int, c0: int, xargs=None):
     ``[k, k + nr)``; the caller writes ``pivrows`` over the band.
 
     CPU tensors take the plain version; CUDA tensors launch kernel 13 (one
-    cooperative launch)."""
+    cooperative launch; bf16 operands that TMA cannot read in place are
+    copied first, :func:`_lib.gemm_operand`)."""
     idx = () if xargs is None else tuple(xargs[1:])
     if not _lib.on_cuda(a, l21, u12, *idx):
         return gemm_trailing_plain(a, l21, u12, r0, c0, xargs)
@@ -77,6 +79,7 @@ def gemm_trailing(a, l21, u12, r0: int, c0: int, xargs=None):
     _lib.check(not c_bf16 or l21.dtype == torch.bfloat16,
                "gemm_trailing: a bf16 matrix takes bf16 l21/u12")
     mode = 0 if l21.dtype == torch.bfloat16 else 2
+    l21, u12 = _lib.gemm_operand(l21), _lib.gemm_operand(u12)
     if xargs is None:
         nr, k, gp, dp, pp, pivrows = 0, 0, None, None, None, None
     else:

@@ -354,7 +354,9 @@ def trailing_gemm_sub(a, l21, u12, ko: int, ncols: int | None = None):
     (IEEE FFMA); a bf16 ``a`` (ALL_BF16) takes bf16 operands and each entry
     is rounded to bf16 once after the fp32 subtract.  Returns ``a``.
 
-    CPU tensors take the plain version; CUDA tensors launch kernel 6."""
+    CPU tensors take the plain version; CUDA tensors launch kernel 6 (bf16
+    operands that TMA cannot read in place are copied first,
+    :func:`_lib.gemm_operand`)."""
     if not _lib.on_cuda(a, l21, u12):
         return trailing_gemm_sub_plain(a, l21, u12, ko, ncols)
     _row_major(a, "trailing_gemm_sub: a")
@@ -371,6 +373,7 @@ def trailing_gemm_sub(a, l21, u12, ko: int, ncols: int | None = None):
     _lib.check(not c_bf16 or l21.dtype == torch.bfloat16,
                "trailing_gemm_sub: a bf16 matrix takes bf16 l21/u12")
     mode = 0 if l21.dtype == torch.bfloat16 else 2
+    l21, u12 = _lib.gemm_operand(l21), _lib.gemm_operand(u12)
     c = a[ko:ko + m, ko:ko + ncols]
     _lib.call("mpf_trailing_sub", mode, m, ncols, kk, l21.data_ptr(), l21.stride(0),
               u12.data_ptr(), u12.stride(0), c.data_ptr(), int(c_bf16), a.stride(0))

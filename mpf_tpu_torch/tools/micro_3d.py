@@ -125,8 +125,9 @@ def gemm3d(a3, b, c3):
     o2 = out.view(s, w)
     _block_copy(o2, c3.view(s, w))
     bf16 = c3.dtype == torch.bfloat16
-    _lib.call("mpf_trailing_sub", 0 if bf16 else 2, s, w, k, a3.data_ptr(), k, b.data_ptr(), w,
-              o2.data_ptr(), int(bf16), w)
+    a2, b = _lib.gemm_operand(a3.view(s, k)), _lib.gemm_operand(b)
+    _lib.call("mpf_trailing_sub", 0 if bf16 else 2, s, w, k, a2.data_ptr(), a2.stride(0),
+              b.data_ptr(), b.stride(0), o2.data_ptr(), int(bf16), w)
     _lib.counted_launch("probe_gemm3d")
     return out
 

@@ -133,6 +133,60 @@ def test_trailing_kernel(cuda, dt):
     assert torch.equal(x[:100], a[:100]) and torch.equal(x[:, 800:], a[:, 800:])
 
 
+def _close_to_plain(x, y, a, reg, l21, u12):
+    """fp32 C within 1e-6 of max |a|; bf16 C within one bf16 ulp plus the
+    fp32 sum-order bound; everything outside ``reg`` untouched."""
+    if x.dtype == BF:
+        ok = within_bf16_ulp(x[reg], y[reg], sum_slack(a[reg], l21, u12)).ok
+    else:
+        ok = float((x - y).abs().max() / y.abs().max()) <= 1e-6
+    outside = torch.ones(a.shape, dtype=torch.bool, device=a.device)
+    outside[reg] = False
+    return ok and torch.equal(x[outside], a[outside])
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, BF])
+@pytest.mark.parametrize("m,w,kk", [(300, 700, 1), (300, 700, 48), (300, 700, 72),
+                                    (1000, 900, 1000), (200, 300, 72), (9000, 8000, 136)],
+                         ids=["k1", "k48", "k72", "k1000", "fewer_tiles_than_sms",
+                              "many_tiles"])
+def test_trailing_sm90_shapes(cuda, cdt, m, w, kk):
+    """Kernel 6's bf16-operand instances (the Hopper TMA + wgmma routine) at
+    M, N and K that are no tile multiples, K in {1, 48, 72, 1000}, 4 tiles
+    (fewer than the SMs) and 2272 (17 times the SMs), operands that are
+    views of wider matrices (no copy): against the plain version."""
+    ko = 40
+    a = _hpl(ko + max(m, w) + 24, 21, cuda).to(cdt)
+    gen = _gen(cuda, 22)
+    wide = lambda c: -(-c // 8) * 8 + 64      # 16-byte rows, wider than the operand
+    l21 = (torch.rand((m, wide(kk)), generator=gen, device=cuda) - 0.5).to(BF)[:, :kk]
+    u12 = (torch.rand((kk, wide(w)), generator=gen, device=cuda) - 0.5).to(BF)[:, :w]
+    x, y = a.clone(), a.clone()
+    _lib.reset_counts()
+    trailing_gemm_sub(x, l21, u12, ko, ncols=w)
+    assert _lib.launches["trailing_sub"] == 1 and _lib.copies["gemm_operand"] == 0
+    trailing_gemm_sub_plain(y, l21, u12, ko, ncols=w)
+    assert _close_to_plain(x, y, a, (slice(ko, ko + m), slice(ko, ko + w)), l21, u12)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, BF])
+def test_trailing_sm90_unaligned(cuda, cdt):
+    """U12 with N = 700 (1400-byte rows) and L21 at an odd column offset are
+    copied into padded buffers (two copies counted); C at an odd offset of a
+    1001-wide matrix, so its rows alternate in alignment: against the plain
+    version."""
+    a = _hpl(1001, 23, cuda).to(cdt)
+    gen = _gen(cuda, 24)
+    l21 = (torch.rand((900, 73), generator=gen, device=cuda) - 0.5).to(BF)[:, 1:]
+    u12 = (torch.rand((72, 700), generator=gen, device=cuda) - 0.5).to(BF)
+    x, y = a.clone(), a.clone()
+    _lib.reset_counts()
+    trailing_gemm_sub(x, l21, u12, 101, ncols=700)
+    assert _lib.launches["trailing_sub"] == 1 and _lib.copies["gemm_operand"] == 2
+    trailing_gemm_sub_plain(y, l21, u12, 101, ncols=700)
+    assert _close_to_plain(x, y, a, (slice(101, 1001), slice(101, 801)), l21, u12)
+
+
 @pytest.mark.parametrize("policy", [MPF_BF16, MPF_REF, PURE_FP32])
 def test_factorize_on_card(cuda, policy):
     """The fused main path through its kernels (1-6) only; oracle on the
@@ -365,18 +419,20 @@ def _band_perm(rng, n, k, bc):
             torch.from_numpy((inv[:bc] + k).astype(np.int32)))
 
 
+@pytest.mark.parametrize("n,r0,c0,kk", [(1000, 256, 392, 136), (4096, 256, 1280, 1024)],
+                         ids=["ragged", "more_tiles_than_sms"])
 @pytest.mark.parametrize("dt,gd", [(torch.float32, BF), (torch.float32, torch.float32),
                                    (BF, BF)])
-def test_gemmx_kernel(cuda, dt, gd):
+def test_gemmx_kernel(cuda, dt, gd, n, r0, c0, kk):
     """Kernel 13 at ragged sizes (n = 1000, r0 = 256, c0 = 392, K = 136,
-    nr = 136), each instance: bitwise equal to kernel 6 on the same region
+    nr = 136) and at n = 4096, K = nr = 1024 (330 bf16 tiles, more than the
+    SMs), each instance: bitwise equal to kernel 6 on the same region
     followed by kernel 4, for a random band map, the identity map and a
     band whose every row leaves.  Kernel 6's GEMM against the plain
     version: outside the region exact, inside within 1e-6 of max |a| (fp32
     C) or one bf16 ulp plus the fp32 sum-order bound (bf16 C).  The plain
     version with ``xargs`` equals its GEMM followed by the plain exchange."""
     rng = np.random.default_rng(11)
-    n, r0, c0, kk = 1000, 256, 392, 136
     m, w = n - r0, n - c0
     a = _hpl(n, 8, cuda).to(dt)
     l21 = (torch.rand((m, kk), device=cuda) - 0.5).to(gd)
