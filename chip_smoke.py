@@ -4,12 +4,21 @@
 
 Phases, one line each:
   1. device check and the kernel build (nvcc, sm_90a, one process per
-     source, all started together) from csrc/;
+     source, all started together) from csrc/; what ptxas -v said of the
+     FFMA routine's four kernels (kernels 6 and 13, 16- and 4-byte
+     copies) printed, and no spill required;
   2. kernels 1-6 of the fused path against their plain PyTorch versions on
      the card, at the fused path's shapes (n = 16384, r = 128, block 1024,
      MPF_BF16); kernel 6's bf16-operand instance (the Hopper TMA + wgmma
      routine) printed with its TF/s and share of the 989 TFLOP/s bf16 peak
-     beside the library call's time;
+     beside the library call's time; kernel 3's fp32-operand update timed
+     beside one addmm_ over as many rows; kernel 6's fp32 instance (the
+     FFMA routine of gemm_ffma.cuh) at 15360^2 x 1024 on fp32 operands:
+     the update against the fp64 product past half an ulp of the stored
+     result (1e-5 relative), everything outside the trailing block exact,
+     and the same update as four calls on quadrants split at a row and a
+     column that are no tile multiple bitwise equal; its TF/s and share
+     of the 67 TFLOP/s fp32 peak printed beside addmm_ and the bound;
   2b. kernels 7, 8, 8b and 9 of the masked path against their plain
      versions at the masked path's shapes (m = 16384, r = 128; the slab
      (16384, 1024) and the whole matrix for the row exchange);
@@ -47,9 +56,18 @@ Phases, one line each:
      operands and fp32 C, fp32 operands, bf16 C) bitwise equal to kernel 6
      on the same region followed by kernel 4, and against its plain version
      (fp32 C: 1e-6 of max |a|; bf16 C: one bf16 ulp plus sum_slack), the
-     bf16-operand instances' TF/s and share of the bf16 peak printed;
+     bf16-operand instances' TF/s and share of the bf16 peak printed, the
+     FFMA instance's TF/s and share of the fp32 peak beside the library
+     call and the bound;
      kernel 11's gather, scatter from the band and scatter of values
      bitwise equal to their plain versions, fp32 and bf16;
+  3b. (run after 5d, before 6) MPF_REF on the fused path at n = 16384, r =
+     128 on both matrices (kernels 3 and 6 with fp32 operands: the FFMA
+     routine), then the lookahead driver (kernel 13's FFMA instance):
+     device oracle (nbe <= 1e-5), the exact launch counts, no plain call,
+     no operand copy, lookahead's pivots and row map equal to the classic
+     loop's on HPL-AI, whether the factors are bitwise equal printed,
+     median of 3 each;
   6. the lookahead driver (kernel 13) under MPF_BF16 at n = 16384 on both
      matrices: device oracle, the exact launch counts, HPL-AI pivots and
      row map equal to phase 3's, the uniform matrix's first pivot that
@@ -68,7 +86,8 @@ Phases, one line each:
      panels at jj0 = 0 and 384, m = 16384, bc = 1024, r = 128, each
      instance (fp32 slab with bf16 or fp32 update operands, bf16 slab) held
      as phases 2 and 2c hold kernels 3 and 12, frozen rows and the columns
-     left of the panel exact;
+     left of the panel exact, and the fp32-operand instance bitwise equal
+     to kernel 3 (the same sum order);
   7. the deferred exchange, defer = 8 under MPF_BF16 at n = 16384 on both
      matrices: factors, pivots and row map bitwise equal to phase 3's, the
      exact launch counts (16 band copies, 2 flushes), oracle, median of 3;
@@ -81,7 +100,8 @@ Phases, one line each:
      bf16: the slab extract, writeback and band write bitwise equal to
      their plain versions, rows_exchange3 and trailing_sub3 (kernels 4 and
      6 on the pair tensor) bitwise equal to the plain exchange and to
-     kernel 6 on the 2D view; the in-place U12 within one working-dtype ulp of
+     kernel 6 on the 2D view (trailing_sub3 with bf16 operands and, on the
+     fp32 matrix, with fp32 operands too, each timed); the in-place U12 within one working-dtype ulp of
      its plain version plus sum_slack (the largest share of that bound used
      printed), with L^-1 from the uniform matrix's first block column;
   8. the pair-layout (n/2, 2, n) driver at n = 16384, MPF_BF16 beside
@@ -327,6 +347,15 @@ def main() -> int:
     so = _lib.build()
     _lib.lib()
     phase("build", True, lib=so.name, seconds=f"{time.perf_counter() - t0:.1f}")
+    # the FFMA routine's kernels (kernel 6 and 13, 16- and 4-byte copies):
+    # what ptxas -v said of their registers, and no spill
+    ffma_regs = _lib.ptxas_report("ffma")
+    for name, v in sorted(ffma_regs.items()):
+        print(f"[INFO] ptxas {name}: {json.dumps(v)}", flush=True)
+    phase("ffma_no_spill", len(ffma_regs) == 4 and all(
+        v.get("spill_stores", 1) == 0 and v.get("spill_loads", 1) == 0
+        for v in ffma_regs.values()), kernels=len(ffma_regs),
+          registers="/".join(str(v.get("registers")) for _, v in sorted(ffma_regs.items())))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -409,15 +438,19 @@ def main() -> int:
             print(f"[INFO] library call unavailable: {exc}", flush=True)
             return None
 
-    def bf16_rate(tag, ops, ms, library_ms):
-        """Print a bf16 tensor-core instance's TF/s, its share of the bf16
-        peak and its time beside the library call's; return the TF/s."""
+    def rate(tag, ops, ms, library_ms, bnd=None):
+        """Print a GEMM instance's TF/s and its share of the peak of its
+        operation type (bf16 tensor cores; fp32 FFMA where the bound
+        ``bnd`` is given) beside the library call's time; return the
+        TF/s."""
         tf = ops / ms / 1e9
+        peak, kind = (BF16_FLOPS, "bf16") if bnd is None else (FP32_FLOPS, "fp32")
         lib = ("none" if library_ms is None
                else f"{library_ms:.3f} ms, kernel / library {ms / library_ms:.2f}")
+        extra = "" if bnd is None else f"; bound {bnd[0]:.3f} ms ({bnd[1]})"
         print(f"[INFO] {tag}: {ms:.3f} ms, {tf:.1f} TF/s, "
-              f"{100 * tf * 1e12 / BF16_FLOPS:.1f}% of the {BF16_FLOPS / 1e12:.0f} TFLOP/s "
-              f"bf16 peak; library {lib}", flush=True)
+              f"{100 * tf * 1e12 / peak:.1f}% of the {peak / 1e12:.0f} TFLOP/s "
+              f"{kind} peak; library {lib}{extra}", flush=True)
         return tf
 
     def panel_ops(m, off, r):
@@ -536,7 +569,16 @@ def main() -> int:
             ms3 = event_ms(lambda: panel_apply_update_trim(s_t, pos1, rb_p, ui_p, 0, 0, True))
             pms3 = event_ms(lambda: panel_apply_update_trim_plain(s_t, pos1, rb_p, ui_p,
                                                                   0, 0, True))
-            del s_t
+            # the fp32-operand form (MPF_REF, PURE_FP32: the FFMA routine with
+            # the row mask), and beside it the update alone as one addmm_
+            # over as many rows as the mask leaves (n - r), not those rows
+            ms3f = event_ms(lambda: panel_apply_update_trim(s_t, pos1, rb_p, ui_p, 0, 0,
+                                                            False))
+            pms3f = event_ms(lambda: panel_apply_update_trim_plain(s_t, pos1, rb_p, ui_p,
+                                                                   0, 0, False))
+            l21x = s_t[r:, :r].clone()
+            lib3f = library(lambda: s_t[r:, r:].addmm_(l21x, rb_p[:, r:], alpha=-1))
+            del s_t, l21x
             slab_z = slab.clone()
             g0, g1 = int(glist1[0]), int(glist1[1])
             # second pivot row := first pivot row, so the second pivot is 0
@@ -555,6 +597,12 @@ def main() -> int:
     m3 = n - r
     record("panel_update", abs3, err3, ms3, pms3,
            bound(8 * n * bc + 4 * r * bc, 2 * m3 * r * r, 2 * m3 * r * (bc - r)), None)
+    b3f = bound(8 * n * bc + 4 * r * bc, 2 * m3 * r * r + 2 * m3 * r * (bc - r))
+    kern["panel_update"].update(fp32_ms=ms3f, fp32_plain_ms=pms3f, fp32_bound_ms=b3f[0],
+                                fp32_bound_by=b3f[1], fp32_update_addmm_ms=lib3f)
+    print(f"[INFO] k3 fp32 operands (L21 + FFMA update): {ms3f:.4f} ms, plain "
+          f"{pms3f:.4f} ms, bound {b3f[0]:.4f} ms ({b3f[1]}); the update alone as one "
+          f"addmm_ over {m3} rows: {lib3f} ms; bf16 update {ms3:.4f} ms", flush=True)
 
     # #4 exchange at block column k=1024: bit-exact
     k = bc
@@ -615,17 +663,59 @@ def main() -> int:
     pms = event_ms(lambda: trailing_gemm_sub_plain(a_p, l21, u12, e))
     c6 = a_p[e:, e:]
     lib6 = library(lambda: torch.addmm(c6, l21, u12, alpha=-1, out_dtype=torch.float32))
-    # the fp32 instance (MPF_FP16, MPF_REF, PURE_FP32) on the same shape
-    l21f, u12f = l21.float(), u12.float()
-    ms6f = event_ms(lambda: trailing_gemm_sub(a_k, l21f, u12f, e), 2)
-    lib6f = library(lambda: c6.addmm_(l21f, u12f, alpha=-1), 2)
     mt = n - e
-    tf6 = bf16_rate("k6 bf16 operands, fp32 C", 2 * mt * mt * bc, ms, lib6)
+    tf6 = rate("k6 bf16 operands, fp32 C", 2 * mt * mt * bc, ms, lib6)
     record("trailing_sub", err6, rel6, ms, pms,
-           bound(8 * mt * mt + 2 * 2 * mt * bc, 0, 2 * mt * mt * bc), lib6, tflops=tf6,
-           fp32_ms=ms6f, fp32_library_ms=lib6f,
-           fp32_bound_ms=bound(8 * mt * mt + 2 * 4 * mt * bc, 2 * mt * mt * bc)[0])
-    del a_k, a_p, l21, u12, l21f, u12f, c6
+           bound(8 * mt * mt + 2 * 2 * mt * bc, 0, 2 * mt * mt * bc), lib6, tflops=tf6)
+    del a_k, a_p, l21, u12, c6
+    torch.cuda.empty_cache()
+
+    # #6 fp32 instance (the FFMA routine; MPF_FP16, MPF_REF, PURE_FP32) at
+    # e = 1024 on fp32 operands: the update against the fp64 product, past
+    # half an ulp of the stored result, 1e-5 relative; everything outside the
+    # trailing block exact; the same update as four calls on quadrants split
+    # at a row and a column that are no tile multiple bitwise equal (each
+    # entry is one fmaf chain in ascending k, whatever the tiling)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    l21f = torch.rand((mt, bc), generator=gen, device=dev) - 0.5
+    u12f = torch.rand((bc, mt), generator=gen, device=dev) - 0.5
+    a_k = hpl.clone()
+    _lib.reset_counts()
+    trailing_gemm_sub(a_k, l21f, u12f, e)
+    one6 = _lib.launches["trailing_sub"] == 1 and _lib.copies["gemm_operand"] == 0
+    after = a_k[e:, e:]
+    upd = hpl[e:, e:].double() - after.double()
+    ref = l21f.double() @ u12f.double()
+    mag = after.abs()
+    half_ulp = (torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag).double() / 2
+    dev6 = (upd - ref).abs()
+    err6f = float(dev6.max())
+    e_upd6 = float((dev6 - half_ulp).clamp_min(0).max() / ref.abs().max())
+    del upd, ref, mag, half_ulp, dev6
+    untouched = torch.equal(a_k[:e], hpl[:e]) and torch.equal(a_k[:, :e], hpl[:, :e])
+    a_q = hpl.clone()
+    rs, cs = 7001, 5003
+    for r0, r1 in ((0, rs), (rs, mt)):
+        for c0, c1 in ((0, cs), (cs, mt)):
+            # a_q[r0 + e :, c0 + e :] is the quadrant's corner of the view
+            trailing_gemm_sub(a_q[r0:, c0:], l21f[r0:r1], u12f[:, c0:c1], e, ncols=c1 - c0)
+    quad = torch.equal(a_q, a_k)
+    del a_q
+    phase("k6_fp32_trailing_sub", e_upd6 <= 1e-5 and untouched and quad and one6,
+          rel_err_update=f"{e_upd6:.3e}", outside_untouched=untouched,
+          quadrants_bitwise=quad, split_at=f"{rs}x{cs}", one_launch_no_copy=one6)
+    a_p = hpl.clone()
+    ms6f = event_ms(lambda: trailing_gemm_sub(a_k, l21f, u12f, e))
+    pms6f = event_ms(lambda: trailing_gemm_sub_plain(a_p, l21f, u12f, e), 2)
+    c6 = a_p[e:, e:]
+    lib6f = library(lambda: c6.addmm_(l21f, u12f, alpha=-1))
+    b6f = bound(8 * mt * mt + 2 * 4 * mt * bc, 2 * mt * mt * bc)
+    tf6f = rate("k6 fp32 operands", 2 * mt * mt * bc, ms6f, lib6f, b6f)
+    kern["trailing_sub"].update(fp32_ms=ms6f, fp32_plain_ms=pms6f, fp32_library_ms=lib6f,
+                                fp32_bound_ms=b6f[0], fp32_bound_by=b6f[1],
+                                fp32_max_abs_err=err6f, fp32_tflops=tf6f,
+                                fp32_quadrants_bitwise=quad)
+    del a_k, a_p, c6, l21f, u12f, after
     torch.cuda.empty_cache()
 
     # ---------------- phase 2b: the masked path's kernels vs plain ----------
@@ -895,7 +985,7 @@ def main() -> int:
     pms = event_ms(lambda: trailing_gemm_sub_plain(a_p, l21, u12, e))
     c6b = a_p[e:, e:]
     lib6b = library(lambda: torch.addmm(c6b, l21, u12, alpha=-1))
-    tf6b = bf16_rate("k6 bf16 operands, bf16 C", 2 * mt * mt * bc, ms, lib6b)
+    tf6b = rate("k6 bf16 operands, bf16 C", 2 * mt * mt * bc, ms, lib6b)
     record_bf16("trailing_sub", err6b, ms, pms,
                 bound(4 * mt * mt + 2 * 2 * mt * bc, 0, 2 * mt * mt * bc), lib6b, tflops=tf6b)
     del a_k, a_p, l21, u12, c6b, hpl_b, slab0_b, uni_b
@@ -992,16 +1082,15 @@ def main() -> int:
         b13 = bound(2 * el * mt * wt + l21.element_size() * (mt * bc + bc * wt)
                     + el * x_bytes, ops if tag == "fp32_operands" else 0,
                     0 if tag == "fp32_operands" else ops)
-        tf13 = None
-        if tag != "fp32_operands":
-            tf13 = bf16_rate(f"k13 {tag} (+ exchange)", ops, ms13[tag], lib)
+        tf13 = rate(f"k13 {tag} (+ exchange)", ops, ms13[tag], lib,
+                    b13 if tag == "fp32_operands" else None)
         if tag == "bf16_operands":
             record("gemmx", err13, err13 / float(a13.abs().max()), ms13[tag], pms, b13, lib,
                    moved_rows=moved, kernel6_then_kernel4_ms=serial_ms, tflops=tf13)
         elif tag == "fp32_operands":
             kern["gemmx"].update(fp32_ms=ms13[tag], fp32_plain_ms=pms, fp32_library_ms=lib,
                                  fp32_bound_ms=b13[0], fp32_max_abs_err=err13,
-                                 fp32_kernel6_then_kernel4_ms=serial_ms)
+                                 fp32_kernel6_then_kernel4_ms=serial_ms, fp32_tflops=tf13)
         else:
             record_bf16("gemmx", err13, ms13[tag], pms, b13, lib,
                         kernel6_then_kernel4_ms=serial_ms, tflops=tf13)
@@ -1114,8 +1203,8 @@ def main() -> int:
     # the update against the product of the kernel's own L21 (fp32 slabs:
     # in fp64, past the half ulp of the stored result, 1e-5 relative; bf16:
     # one ulp plus sum_slack); frozen rows and the columns left of the
-    # panel exact.  The fp32-operand instance is also compared with kernel 3
-    # (whose L21 pass and FFMA tile sum in the same order)
+    # panel exact.  The fp32-operand instance must also equal kernel 3
+    # bitwise (its L21 pass and the FFMA routine sum in the same order)
     uni_b = uni.to(BF)
     ms10 = {}
     err10 = {}
@@ -1164,9 +1253,11 @@ def main() -> int:
                 ok = e_l21 <= 1e-5 and e_upd <= 1e-5
                 fields = dict(rel_err_l21=f"{e_l21:.3e}", rel_err_update=f"{e_upd:.3e}")
                 if not gbf:
+                    # kernel 3's L21 pass and FFMA routine sum in the same order
                     s_3 = slab.clone()
                     panel_apply_update_trim(s_3, pos1, rb_p, ui_p, jj0, jj0, False)
                     fields["bitwise_kernel3"] = torch.equal(s_k, s_3)
+                    ok = ok and fields["bitwise_kernel3"]
                     del s_3
                 del l21_k, ref, after, mag, half_ulp, upd_k
             err10[inst] = max(err10.get(inst, 0.0), absd(s_k, s_p))
@@ -1268,13 +1359,27 @@ def main() -> int:
         trailing_gemm_sub(as_matrix(y3), l21, u12, bc)
         ok_s3 = torch.equal(x3, y3)
         counted = (_lib.launches["rows_exchange"], _lib.launches["trailing_sub"]) == (1, 2)
-        phase(f"rows_exchange3_trailing_sub3_{tag}", ok_x3 and ok_s3 and counted,
-              rows_exchange3_exact=ok_x3, trailing_sub3_equals_kernel6=ok_s3)
+        fields = {}
+        if dt == torch.float32:
+            # the fp32-operand instance (the FFMA routine) on the pair tensor
+            l21f, u12f = l21.float(), u12.float()
+            x3f, y3f = a3.clone(), a3.clone()
+            trailing_sub3(x3f, l21f, u12f, bc)
+            trailing_gemm_sub(as_matrix(y3f), l21f, u12f, bc)
+            fields["fp32_operands_equal_kernel6"] = torch.equal(x3f, y3f)
+            del y3f
+        phase(f"rows_exchange3_trailing_sub3_{tag}", ok_x3 and ok_s3 and counted
+              and fields.get("fp32_operands_equal_kernel6", True),
+              rows_exchange3_exact=ok_x3, trailing_sub3_equals_kernel6=ok_s3, **fields)
         kern["rows_exchange"].setdefault("pair_layout", {})[tag] = {
             "ms": event_ms(lambda: rows_exchange3(x3, bc, src, src)),
             "plain_ms": event_ms(lambda: rows_exchange_plain(as_matrix(y3), bc, src, src))}
         kern["trailing_sub"].setdefault("pair_layout", {})[tag] = {
             "ms": event_ms(lambda: trailing_sub3(x3, l21, u12, bc))}
+        if dt == torch.float32:
+            kern["trailing_sub"]["pair_layout"][tag]["fp32_operands_ms"] = event_ms(
+                lambda: trailing_sub3(x3f, l21f, u12f, bc))
+            del x3f, l21f, u12f
         print(f"[INFO] rows_exchange3 / trailing_sub3 {tag}: "
               f"{json.dumps(kern['rows_exchange']['pair_layout'][tag])} / "
               f"{json.dumps(kern['trailing_sub']['pair_layout'][tag])}", flush=True)
@@ -1704,16 +1809,19 @@ def main() -> int:
 
     # ---------------- phases 6-6d: lookahead, split exchange, superblock ----
     def variant_run(tag, fac6, policy, corpus, gen, want, tol, ref, ref_ms,
-                    same_pivots: bool, bitwise: bool = False, pairs: bool = False):
+                    same_pivots: bool, bitwise: bool = False, pairs: bool = False,
+                    keep=None):
         """One n = 16384 factorization through a variant of the fused loop.
         Counts set to 0 just before it and read just after must equal
         ``want`` exactly; the device oracle at ``tol``; pivots and row map
         against ``ref`` (the classic loop's in this run): equal where
         ``same_pivots``, else the first differing pivot is printed; with
         ``bitwise`` the factors too; median of 3 beside ``ref_ms``.
+        ``ref`` None: the classic loop itself, compared with nothing.
         ``pairs``: the matrix goes in as its (n/2, 2, n) view, the factors
         come back so, and their largest difference from ``ref``'s is
-        printed."""
+        printed.  ``keep``: a dict that takes ``corpus -> (result, median
+        ms)``."""
         a0 = torch.from_numpy(gen(n, seed=0)).to(dev)
         a0w = a0.to(policy.working)
         if pairs:
@@ -1743,12 +1851,18 @@ def main() -> int:
         is_perm = torch.equal(torch.sort(perm).values, torch.arange(n, device=dev))
         consistent = torch.equal(ipiv_to_perm(res.ipiv).to(dev), perm)
         finite = bool(torch.isfinite(lu).all())
-        diff = (res.ipiv != ref.ipiv).nonzero()
-        first_diff = int(diff[0]) if diff.numel() else None
-        piv_eq = first_diff is None and torch.equal(res.perm, ref.perm)
-        if bitwise:
-            fields["bitwise_equal_classic"] = piv_eq and torch.equal(res.lu, ref.lu)
+        first_diff, piv_eq = None, None
+        if ref is not None:
+            diff = (res.ipiv != ref.ipiv).nonzero()
+            first_diff = int(diff[0]) if diff.numel() else None
+            piv_eq = first_diff is None and torch.equal(res.perm, ref.perm)
+            if bitwise:
+                fields["bitwise_equal_classic"] = piv_eq and torch.equal(res.lu, ref.lu)
+            else:
+                fields["factors_bitwise_equal_classic"] = piv_eq and torch.equal(lu, ref.lu)
         med, runs = cuda_time(fac6, a0w, warmup=1, iters=3, setup=lambda x: (x.clone(),))[:2]
+        if ref_ms is not None:
+            fields["classic_median_ms"] = f"{ref_ms:.2f}"
         phase(f"{tag}_{corpus}",
               rep6.ok and is_perm and consistent and finite and counters_ok
               and int(res.info) == 0 and (piv_eq or not same_pivots) and copies == 0
@@ -1759,13 +1873,29 @@ def main() -> int:
               launches=json.dumps(launched, separators=(",", ":")),
               plain_calls=sum(plain.values()), operand_copies=copies,
               first_run_s=f"{first_s:.3f}", median_ms=f"{med * 1e3:.2f}",
-              runs_ms="/".join(f"{t * 1e3:.2f}" for t in runs), classic_median_ms=f"{ref_ms:.2f}", tflops=f"{tflops(n, med):.2f}",
+              runs_ms="/".join(f"{t * 1e3:.2f}" for t in runs), tflops=f"{tflops(n, med):.2f}",
               card=f"'{smi}'")
+        if keep is not None:
+            keep[corpus] = (res, med * 1e3)
         del a0, a0w, work, res
         torch.cuda.empty_cache()
         return launched
 
     corpora = (("hpl_ai", matgen.hpl_ai_matrix), ("uniform", matgen.random_dense))
+    # 3b: MPF_REF on the fused path (kernels 3 and 6 with fp32 operands, the
+    # FFMA routine), then the lookahead driver (kernel 13's FFMA instance);
+    # lookahead's pivots equal to the classic loop's on HPL-AI
+    fac3b = T.make_mpf(n, r=r, policy=T.MPF_REF)
+    fac3b_la = T.make_mpf(n, r=r, policy=T.MPF_REF, lookahead=True)
+    mpf_ref = {}
+    for corpus, gen in corpora:
+        variant_run("mpf_ref", fac3b, T.MPF_REF, corpus, gen, fused_counts(n, r, bc),
+                    NBE_TOL_FP32, None, None, same_pivots=False, keep=mpf_ref)
+        variant_run("lookahead_mpf_ref", fac3b_la, T.MPF_REF, corpus, gen,
+                    fused_counts(n, r, bc, lookahead=True), NBE_TOL_FP32, mpf_ref[corpus][0],
+                    mpf_ref[corpus][1], same_pivots=corpus == "hpl_ai")
+        del mpf_ref[corpus]
+        torch.cuda.empty_cache()
     # 6: lookahead, MPF_BF16 (kernel 13 in place of kernel 4 for block
     # columns 1-14); HPL-AI's pivots must equal phase 3's
     fac6 = T.make_mpf(n, r=r, policy=T.MPF_BF16, lookahead=True)

@@ -11,45 +11,77 @@
 // (2 (n-e)^2 * bc flops per block column).  With bf16 operands the products
 // are tensor-core bound and C's read-modify-write bytes bound, of the same
 // order at K = 1024 (gemm_sm90.cuh says how its design treats both); the
-// fp32-operand form (PURE_FP32, MPF_REF) is FFMA bound.
+// fp32-operand form (PURE_FP32, MPF_REF, MPF_FP16) is FFMA bound
+// (gemm_ffma.cuh).
 //
 // Design: the bf16-operand instances (fp32 C, bf16 C) run the Hopper
 // routine of gemm_sm90.cuh: TMA tile loads into an mbarrier ring, a
 // producer warpgroup and two wgmma consumer warpgroups, one persistent
 // block per SM, C read and written once per tile in the epilogue (the TPU
 // kernel's point: no separate product array and subtract pass).  The
-// fp32-operand instance runs the FFMA tile routine of common.cuh
-// (tile_ffma), one 64 x 64 tile a block.  launch_gemm_sub also serves the
-// streaming panel update's masked update (panel_update.cu: tile_mma with a
-// row mask, or tile_ffma).
-#include "gemm_sm90.cuh"
+// fp32-operand instance runs the FFMA routine of gemm_ffma.cuh (128 x 128
+// tiles, 8 x 8 outputs a thread, a TMA ring on mbarriers), one block a
+// tile in the grouped raster order, two blocks an SM.  launch_gemm_sub also
+// serves the streaming panel update's masked update (panel_update.cu:
+// tile_mma with a row mask for bf16 operands, the FFMA routine with the row
+// mask for fp32).
+#include "gemm_ffma.cuh"
 
 namespace gemm {
 
-template <typename TA, typename TB, bool kMma, typename TC>
+template <typename TA, typename TB, typename TC>
 __global__ void __launch_bounds__(kThreads)
     gemm_sub_kernel(int M, int N, int K, const TA* __restrict__ A, i64 lda,
                     const TB* __restrict__ B, i64 ldb, TC* __restrict__ C,
                     i64 ldc, const int* __restrict__ pos, int thr) {
-  if constexpr (kMma)
-    tile_mma<TA, TB, TC>(M, N, K, A, lda, B, ldb, C, ldc, pos, thr, blockIdx.y * kBM,
-                         blockIdx.x * kBN);
-  else
-    tile_ffma<TA, TB>(M, N, K, A, lda, B, ldb, C, ldc, pos, thr, blockIdx.y * kFM,
-                      blockIdx.x * kFN);
+  tile_mma<TA, TB, TC>(M, N, K, A, lda, B, ldb, C, ldc, pos, thr, blockIdx.y * kBM,
+                       blockIdx.x * kBN);
 }
+
+namespace ffma {
+
+template <bool kTma>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    ffma_sub_kernel(const __grid_constant__ CUtensorMap tmA,
+                    const __grid_constant__ CUtensorMap tmB, const __grid_constant__ Args g) {
+  extern __shared__ uint8_t ffma_smem[];
+  const Ring ring = ring_init(ffma_smem);
+  const int tiles_m = (g.M + kBM - 1) / kBM, tiles_n = (g.N + kBN - 1) / kBN;
+  int m0, n0;
+  tile_origin(blockIdx.x, tiles_m, tiles_n, m0, n0);
+  uint32_t it = 0;
+  run_tile<kTma>(g, &tmA, &tmB, ring, it, m0, n0);
+}
+
+int launch(const Args& g, cudaStream_t st) {
+  CUtensorMap ta, tb;
+  bool tma;
+  int err = operand_maps(g, &ta, &tb, tma);
+  if (err) return err;
+  const void* kern =
+      tma ? (const void*)ffma_sub_kernel<true> : (const void*)ffma_sub_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)tile_count(g.M, g.N));
+  if (tma)
+    ffma_sub_kernel<true><<<grid, kThreads, kSmem, st>>>(ta, tb, g);
+  else
+    ffma_sub_kernel<false><<<grid, kThreads, kSmem, st>>>(ta, tb, g);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace ffma
 
 int launch_gemm_sub(int mode, int M, int N, int K, const void* A, i64 lda,
                     const void* B, i64 ldb, float* C, i64 ldc, const int* pos, int thr,
                     cudaStream_t stream) {
   if (M <= 0 || N <= 0) return (int)cudaGetLastError();
   if (mode == 2) {
-    dim3 grid((N + kFN - 1) / kFN, (M + kFM - 1) / kFM);
-    gemm_sub_kernel<float, float, false, float><<<grid, kThreads, 0, stream>>>(
-        M, N, K, (const float*)A, lda, (const float*)B, ldb, C, ldc, pos, thr);
+    const ffma::Args g{M, N, K, (const float*)A, lda, (const float*)B, ldb, C, ldc, pos, thr};
+    return ffma::launch(g, stream);
   } else if (mode == 1) {
     dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-    gemm_sub_kernel<float, float, true, float><<<grid, kThreads, 0, stream>>>(
+    gemm_sub_kernel<float, float, float><<<grid, kThreads, 0, stream>>>(
         M, N, K, (const float*)A, lda, (const float*)B, ldb, C, ldc, pos, thr);
   } else {
     return (int)cudaErrorInvalidValue;

@@ -26,9 +26,11 @@
 // memory the routine takes; a grid that cannot be co-resident is refused,
 // never run).  The bf16-operand instances run kernel 6's Hopper routine
 // (gemm_sm90.cuh: TMA ring, producer and wgmma consumer warpgroups,
-// persistent tiles, one block an SM), the FFMA instance kernel 6's
-// tile_ffma striding over the tiles; each output entry is summed in the
-// same order as kernel 6's, so every entry is bitwise equal to kernel 6's.
+// persistent tiles, one block an SM), the FFMA instance kernel 6's FFMA
+// routine (gemm_ffma.cuh: 128 x 128 tiles, a TMA ring on mbarriers in
+// dynamic shared memory, two blocks an SM) striding over the tiles in the
+// same grouped raster order; each output entry is summed in the same order
+// as kernel 6's, so every entry is bitwise equal to kernel 6's.
 // The producer warpgroup does not leave early: every thread meets the
 // others again with the same register count and reaches both grid
 // barriers.  Then a grid barrier, the gather, a grid barrier, the scatter.
@@ -41,7 +43,7 @@
 // counterpart: rows are contiguous and the barriers take its place.
 #include <cooperative_groups.h>
 
-#include "gemm_sm90.cuh"
+#include "gemm_ffma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -79,20 +81,27 @@ __device__ __noinline__ void exchange(E* a, i64 ld, int w, int nr, int k,
   }
 }
 
-// the FFMA instance: kernel 6's tile_ffma striding over the tiles
-__global__ void __launch_bounds__(gemm::kThreads)
-    gemmx_ffma_kernel(int M, int N, int K, const float* __restrict__ A, i64 lda,
-                      const float* __restrict__ B, i64 ldb, float* C, i64 ld, uint32_t* a,
-                      int w, int nr, int k, const int* __restrict__ glist,
-                      const int* __restrict__ dests, uint32_t* __restrict__ pivrows) {
-  using namespace gemm;
-  const int tiles_n = (N + kFN - 1) / kFN;
-  const int tiles = ((M + kFM - 1) / kFM) * tiles_n;
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x)
-    tile_ffma<float, float>(M, N, K, A, lda, B, ldb, C, ld, nullptr, 0, (t / tiles_n) * kFM,
-                            (t % tiles_n) * kFN);
+// the FFMA instance: kernel 6's FFMA routine striding over the tiles
+template <bool kTma>
+__global__ void __launch_bounds__(gemm::ffma::kThreads, gemm::ffma::kMinBlocks)
+    gemmx_ffma_kernel(const __grid_constant__ CUtensorMap tmA,
+                      const __grid_constant__ CUtensorMap tmB,
+                      const __grid_constant__ gemm::ffma::Args g, uint32_t* a, int w, int nr,
+                      int k, const int* __restrict__ glist, const int* __restrict__ dests,
+                      uint32_t* __restrict__ pivrows) {
+  using namespace gemm::ffma;
+  extern __shared__ uint8_t gemmx_ffma_smem[];
+  const Ring ring = ring_init(gemmx_ffma_smem);
+  const int tiles_m = (g.M + kBM - 1) / kBM, tiles_n = (g.N + kBN - 1) / kBN;
+  const int tiles = (int)tile_count(g.M, g.N);
+  uint32_t it = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    int m0, n0;
+    tile_origin(t, tiles_m, tiles_n, m0, n0);
+    run_tile<kTma>(g, &tmA, &tmB, ring, it, m0, n0);
+  }
   // nr is the same for every block, so no barrier is left waiting
-  if (nr > 0) exchange(a, ld, w, nr, k, glist, dests, pivrows);
+  if (nr > 0) exchange(a, g.ldc, w, nr, k, glist, dests, pivrows);
 }
 
 // the bf16-operand instances: kernel 6's Hopper routine on the tiles
@@ -145,20 +154,22 @@ int launch_sm90(int M, int N, int K, const void* A, i64 lda, const void* B, i64 
                      s9::tile_count(M, N, K), nr, args, st);
 }
 
-int launch_ffma(int M, int N, int K, const void* A_, i64 lda, const void* B_, i64 ldb,
+int launch_ffma(int M, int N, int K, const void* A, i64 lda, const void* B, i64 ldb,
                 void* a_, i64 ld, int r0, int c0, int w, int nr, int k, const int* glist,
                 const int* dests, void* piv_, cudaStream_t st) {
-  using namespace gemm;
-  const float* A = (const float*)A_;
-  const float* B = (const float*)B_;
+  namespace ff = gemm::ffma;
+  ff::Args g{M, N, K, (const float*)A, lda, (const float*)B, ldb,
+             (float*)a_ + (i64)r0 * ld + c0, ld, nullptr, 0};
+  CUtensorMap ta, tb;
+  bool tma;
+  int err = ff::operand_maps(g, &ta, &tb, tma);
+  if (err) return err;
   uint32_t* a = (uint32_t*)a_;
-  float* C = (float*)a_ + (i64)r0 * ld + c0;
   uint32_t* pivrows = (uint32_t*)piv_;
-  const long long tiles =
-      (M > 0 && N > 0) ? (long long)((M + kFM - 1) / kFM) * ((N + kFN - 1) / kFN) : 0;
-  void* args[] = {&M, &N, &K, &A, &lda, &B, &ldb, &C, &ld, &a, &w, &nr, &k,
-                  &glist, &dests, &pivrows};
-  return launch_coop((const void*)gemmx_ffma_kernel, kThreads, 0, tiles, nr, args, st);
+  void* args[] = {&ta, &tb, &g, &a, &w, &nr, &k, &glist, &dests, &pivrows};
+  const void* kern = tma ? (const void*)gemmx_ffma_kernel<true>
+                         : (const void*)gemmx_ffma_kernel<false>;
+  return launch_coop(kern, ff::kThreads, ff::kSmem, ff::tile_count(M, N), nr, args, st);
 }
 
 }  // namespace

@@ -37,12 +37,14 @@
 // columns.  Design: one block owns a 64-column strip of all kw rows and walks
 // its 64-row tiles from the bottom up.  Tile t reads input rows [0, 64 t +
 // 64) through shared memory (a 64 x 64 FFMA tile, 4 x 4 outputs a thread,
-// as gemm::tile_ffma) and writes its own rows only after the barrier that
-// ends its last K step, when every read of them is done; the tiles above
-// read only rows < 64 t.  No other block touches the strip.  Each K step's
-// global loads are issued into registers before the previous step's FMAs
-// (one block a strip leaves few warps an SM to hide their latency); the
-// tensor cores (bf16 operands under ALL_BF16) are later work.
+// each summed in ascending k on fmaf, the order of the trailing GEMM's
+// FFMA routine, gemm_ffma.cuh) and writes its own rows only after the
+// barrier that ends its last K step, when every read of them is done; the
+// tiles above read only rows < 64 t.  No other block touches the strip.
+// Each K step's global loads are issued into registers before the
+// previous step's FMAs (one block a strip leaves few warps an SM to hide
+// their latency); the tensor cores (bf16 operands under ALL_BF16) are later
+// work.
 #include "common.cuh"
 
 namespace {

@@ -5,12 +5,14 @@ process per source and all started together, then linked into one shared
 library with a plain C interface and loaded with ``ctypes``::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
-         -c csrc/<name>.cu -o <build>/<name>.o          (each source)
+         -Xptxas -v -c csrc/<name>.cu -o <build>/<name>.o     (each source)
     nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <build>/libmpf_kernels.so *.o
 
 The build happens at the first CUDA use (never at import: importing the
 package needs neither ``nvcc`` nor a card), into
 ``mpf_tpu_torch/_build/<hash>/``, keyed by a hash of the sources and flags.
+What ``ptxas -v`` says of every kernel (registers, stack, spills) is kept
+there as ``ptxas.txt`` and read by :func:`ptxas_report`.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`call` raises when it is nonzero.  Each kernel has a launch counter
@@ -24,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -35,7 +38,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: The kernels, one wrapper each: 1-6 carry the fused path (12 in place of
 #: 3 for bf16 slabs, ALL_BF16; 11 in place of 4 under ``MPF_XCHG=split``;
@@ -177,11 +180,13 @@ def build() -> Path:
         cmd = [nvcc, *flags, "-c", str(src), "-o", str(obj)]
         jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.PIPE, text=True)))
-    errors = []
+    errors, logs = [], []
     for cmd, _, proc in jobs:
         out, err = proc.communicate()
+        logs.append(err)
         if proc.returncode != 0:
             errors.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}\n{err}")
+    (out_dir / "ptxas.txt").write_text("".join(logs))
     if errors:
         raise RuntimeError("\n".join(errors))
     tmp = out_dir / f"libmpf_kernels.{tag}.so"
@@ -195,6 +200,33 @@ def build() -> Path:
     for _, obj, _ in jobs:
         obj.unlink()
     return so
+
+
+def ptxas_report(pattern: str, log: str | None = None) -> dict:
+    """What ``ptxas -v`` said of every function whose mangled name contains
+    ``pattern``: ``{name: {"registers", "stack", "spill_stores",
+    "spill_loads"}}`` (registers for kernels only), read from ``log`` or
+    else from the build's ``ptxas.txt`` (building first if need be)."""
+    if log is None:
+        log = (build().parent / "ptxas.txt").read_text()
+    report, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None or pattern not in name:
+            continue
+        entry = report.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            entry.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                         spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+    return report
 
 
 def lib():

@@ -187,6 +187,114 @@ def test_trailing_sm90_unaligned(cuda, cdt):
     assert _close_to_plain(x, y, a, (slice(101, 1001), slice(101, 801)), l21, u12)
 
 
+def _within_fp64_update(x, a, reg, l21, u12):
+    """fp32 C of kernel 6's FFMA instance against C - A @ B in fp64: within
+    one fp32 ulp of the result (the subtract's rounding) plus the bound on
+    an fp32 sum of the K products in any order (oracle.sum_slack)."""
+    ref = a[reg].double() - l21.double() @ u12.double()
+    return within_ulp(x[reg], ref, sum_slack(a[reg], l21, u12), dtype=torch.float32).ok
+
+
+def _ffma_call(x, l21, u12, ko, w):
+    """Kernel 6 with fp32 operands: one launch, no operand copy."""
+    _lib.reset_counts()
+    trailing_gemm_sub(x, l21, u12, ko, ncols=w)
+    return _lib.launches["trailing_sub"] == 1 and _lib.copies["gemm_operand"] == 0
+
+
+@pytest.mark.parametrize("m,w,kk", [(300, 700, 1), (300, 700, 48), (300, 700, 72),
+                                    (1000, 900, 1000), (200, 300, 72), (9000, 8000, 136)],
+                         ids=["k1", "k48", "k72", "k1000", "fewer_tiles_than_sms",
+                              "many_tiles"])
+def test_trailing_ffma_shapes(cuda, m, w, kk):
+    """Kernel 6's fp32-operand instance (the FFMA routine) at the shapes of
+    test_trailing_sm90_shapes, operands that are views of wider matrices
+    (K = 1: a 65-float row stride, the 4-byte-copy instance; else 16-byte
+    copies): one launch, no copy, against the plain version and the fp64
+    update."""
+    ko = 40
+    a = _hpl(ko + max(m, w) + 24, 21, cuda)
+    gen = _gen(cuda, 22)
+    l21 = (torch.rand((m, kk + 64), generator=gen, device=cuda) - 0.5)[:, :kk]
+    u12 = (torch.rand((kk, w + 64), generator=gen, device=cuda) - 0.5)[:, :w]
+    x, y = a.clone(), a.clone()
+    assert _ffma_call(x, l21, u12, ko, w)
+    trailing_gemm_sub_plain(y, l21, u12, ko, ncols=w)
+    reg = (slice(ko, ko + m), slice(ko, ko + w))
+    assert _close_to_plain(x, y, a, reg, l21, u12)
+    assert _within_fp64_update(x, a, reg, l21, u12)
+
+
+@pytest.mark.parametrize("odd_operands", [True, False], ids=["odd_views", "aligned"])
+def test_trailing_ffma_unaligned(cuda, odd_operands):
+    """Kernel 6's FFMA instance with C at an odd offset of a 1001-wide
+    matrix (its rows alternate in alignment), and operands that are views
+    at odd column offsets with odd row strides (the 4-byte-copy instance)
+    or contiguous (16-byte copies): one launch, no copy, against the plain
+    version and the fp64 update."""
+    a = _hpl(1001, 23, cuda)
+    gen = _gen(cuda, 24)
+    if odd_operands:
+        l21 = (torch.rand((900, 75), generator=gen, device=cuda) - 0.5)[:, 1:73]
+        u12 = (torch.rand((72, 703), generator=gen, device=cuda) - 0.5)[:, 3:]
+    else:
+        l21 = torch.rand((900, 72), generator=gen, device=cuda) - 0.5
+        u12 = torch.rand((72, 700), generator=gen, device=cuda) - 0.5
+    x, y = a.clone(), a.clone()
+    assert _ffma_call(x, l21, u12, 101, 700)
+    trailing_gemm_sub_plain(y, l21, u12, 101, ncols=700)
+    reg = (slice(101, 1001), slice(101, 801))
+    assert _close_to_plain(x, y, a, reg, l21, u12)
+    assert _within_fp64_update(x, a, reg, l21, u12)
+
+
+def test_trailing_ffma_quadrants_bitwise(cuda):
+    """Each entry of the FFMA routine is one fmaf chain in ascending k, so
+    the update done as four calls on quadrants split at a row and a column
+    that are no tile multiple is bitwise the update done in one call."""
+    ko, m, w, kk = 30, 700, 650, 200
+    a = _hpl(ko + m + 20, 25, cuda)
+    gen = _gen(cuda, 26)
+    l21 = torch.rand((m, kk), generator=gen, device=cuda) - 0.5
+    u12 = torch.rand((kk, w), generator=gen, device=cuda) - 0.5
+    x, y = a.clone(), a.clone()
+    assert _ffma_call(x, l21, u12, ko, w)
+    for r0, r1 in ((0, 333), (333, m)):
+        for c0, c1 in ((0, 205), (205, w)):
+            # y[ko + r0 :, ko + c0 :] is the quadrant's corner of the view
+            assert _ffma_call(y[r0:, c0:], l21[r0:r1], u12[:, c0:c1], ko, c1 - c0)
+    assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("m,bc,r,jj0", [(3000, 1000, 48, 96), (1000, 301, 5, 10)],
+                         ids=["r48", "odd_r_and_width"])
+def test_panel_update_fp32_masked(cuda, m, bc, r, jj0):
+    """Kernel 3 with fp32 update operands: the FFMA routine with its row
+    mask.  Frozen rows (position < jj0 + r) and the columns left of the
+    panel exact; L21 within 1e-5 of the plain version's; the update against
+    the fp64 product of the kernel's own L21, within one fp32 ulp plus the
+    sum bound.  odd_r_and_width: U12 at an odd offset with an odd row
+    stride (the 4-byte-copy instance)."""
+    rng = np.random.default_rng(7)
+    slab = torch.from_numpy(rng.standard_normal((m, bc)).astype(np.float32)).to(cuda)
+    pos = torch.from_numpy(rng.permutation(m).astype(np.int32)).to(cuda)
+    rb = torch.from_numpy(rng.standard_normal((r, bc)).astype(np.float32)).to(cuda)
+    ui = torch.triu(torch.from_numpy(rng.standard_normal((r, r)).astype(np.float32))).to(cuda)
+    x, y = slab.clone(), slab.clone()
+    _lib.reset_counts()
+    panel_apply_update_trim(x, pos, rb, ui, jj0, jj0, False)
+    assert _lib.launches["panel_update"] == 1
+    panel_apply_update_trim_plain(y, pos, rb, ui, jj0, jj0, False)
+    below = pos >= jj0 + r
+    c0 = jj0 + r
+    assert torch.equal(x[~below], slab[~below]) and torch.equal(x[:, :jj0], slab[:, :jj0])
+    l21 = x[below, jj0:c0]
+    assert float((l21 - y[below, jj0:c0]).abs().max() / y[below, jj0:c0].abs().max()) <= 1e-5
+    ref = slab[below, c0:].double() - l21.double() @ rb[:, c0:].double()
+    assert within_ulp(x[below, c0:], ref, sum_slack(slab[below, c0:], l21, rb[:, c0:]),
+                      dtype=torch.float32).ok
+
+
 @pytest.mark.parametrize("policy", [MPF_BF16, MPF_REF, PURE_FP32])
 def test_factorize_on_card(cuda, policy):
     """The fused main path through its kernels (1-6) only; oracle on the
