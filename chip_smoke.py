@@ -6,7 +6,9 @@ Phases, one line each:
   1. device check and the kernel build (nvcc, sm_90a, one process per
      source, all started together) from csrc/; what ptxas -v said of the
      FFMA routine's four kernels (kernels 6 and 13, 16- and 4-byte
-     copies) printed, and no spill required;
+     copies), the L21 pass's four (kernels 3 and 12: fp32 and bf16, TMA
+     and per-thread copies) and kernel 5's two printed, and no spill
+     required (the Hopper routine's kernels printed too);
   2. kernels 1-6 of the fused path against their plain PyTorch versions on
      the card, at the fused path's shapes (n = 16384, r = 128, block 1024,
      MPF_BF16); kernel 6's bf16-operand instance (the Hopper TMA + wgmma
@@ -23,7 +25,13 @@ Phases, one line each:
      versions at the masked path's shapes (m = 16384, r = 128; the slab
      (16384, 1024) and the whole matrix for the row exchange);
   2c. the bf16-storage instances (ALL_BF16) against their plain versions at
-     the fused path's shapes: kernels 1, 4 and 5 exact; kernel 2's LU and
+     the fused path's shapes: kernels 1, 4 and 5 exact (kernel 5, here and
+     in phase 2, and kernel 12's two passes also timed on the device alone
+     by CUDA graph replays, beside the library calls the same way: their
+     wrapper's time is the host's where issuing takes longer; kernel 12's
+     update pass in both instances of the Hopper routine, C through shared
+     memory and C in registers, bitwise equal and timed in turns, and the
+     L21 pass beside torch.matmul and its FFMA floor); kernel 2's LU and
      kernel 12's L21 pass within one bf16 ulp, info exact; kernel 2's U12
      and U^-1, kernel 12's update pass (fed the kernel's own L21) and
      kernel 6 within one bf16 ulp plus the bound on two fp32 sums of the
@@ -267,6 +275,33 @@ def event_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds of one ``fn()``: ``reps`` calls captured in one
+    CUDA graph, the graph replayed 5 times between CUDA events.  For
+    launches shorter than the host's time to issue them, where event_ms
+    times the host: the replay has no host work between the kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        g.replay()
+    end.record()
+    end.synchronize()
+    del g
+    return start.elapsed_time(end) / (5 * reps)
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -347,15 +382,21 @@ def main() -> int:
     so = _lib.build()
     _lib.lib()
     phase("build", True, lib=so.name, seconds=f"{time.perf_counter() - t0:.1f}")
-    # the FFMA routine's kernels (kernel 6 and 13, 16- and 4-byte copies):
-    # what ptxas -v said of their registers, and no spill
-    ffma_regs = _lib.ptxas_report("ffma")
-    for name, v in sorted(ffma_regs.items()):
-        print(f"[INFO] ptxas {name}: {json.dumps(v)}", flush=True)
-    phase("ffma_no_spill", len(ffma_regs) == 4 and all(
-        v.get("spill_stores", 1) == 0 and v.get("spill_loads", 1) == 0
-        for v in ffma_regs.values()), kernels=len(ffma_regs),
-          registers="/".join(str(v.get("registers")) for _, v in sorted(ffma_regs.items())))
+    # the FFMA routine's kernels (kernel 6 and 13, 16- and 4-byte copies),
+    # the L21 pass of kernels 3 and 12 (fp32 and bf16, TMA and copies) and
+    # kernel 5 (fp32, bf16): what ptxas -v said of their registers, and no
+    # spill; the Hopper routine's kernels (6, and 12's update pass) printed
+    want_regs = {"ffma": 4, "l21_kernel": 4, "tri_inv_kernel": 2}
+    regs = {pat: _lib.ptxas_report(pat) for pat in (*want_regs, "trailing_kernel")}
+    for pat, rep in regs.items():
+        for name, v in sorted(rep.items()):
+            print(f"[INFO] ptxas {name}: {json.dumps(v)}", flush=True)
+    checked = [v for pat in want_regs for v in regs[pat].values()]
+    phase("ffma_no_spill", all(len(regs[p]) == k for p, k in want_regs.items()) and all(
+        v.get("spill_stores", 1) == 0 and v.get("spill_loads", 1) == 0 for v in checked),
+          kernels=len(checked),
+          registers="/".join(str(v.get("registers")) for p in want_regs
+                             for _, v in sorted(regs[p].items())))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -639,11 +680,15 @@ def main() -> int:
     stack = torch.stack([torch.tril(l11[o:o + s, o:o + s], -1)
                          + torch.eye(s, device=dev) for o, s in leaves])
     eye = torch.eye(sz, device=dev).expand_as(stack)
-    lib5 = library(lambda: torch.linalg.solve_triangular(stack, eye, upper=False,
-                                                         unitriangular=True))
+    trsm5 = lambda: torch.linalg.solve_triangular(stack, eye, upper=False, unitriangular=True)
+    lib5 = library(trsm5)
+    # the wrapper's ms above is the host's issue time where that exceeds the
+    # kernel's: the device times of both, from CUDA graph replays
+    dms5, dlib5 = graph_ms(lambda: tri_inv_leaves(l11, leaves)), graph_ms(trsm5)
     # each leaf read and its inverse written; ~s^3/3 operations per leaf
     record("tri_inv", *err5, ms, pms,
-           bound(sum(8 * s * s for _, s in leaves), sum(s ** 3 / 3 for _, s in leaves)), lib5)
+           bound(sum(8 * s * s for _, s in leaves), sum(s ** 3 / 3 for _, s in leaves)), lib5,
+           device_ms=dms5, library_device_ms=dlib5)
 
     # #6 trailing GEMM at e = 1024 (bf16 operands, fp32 accumulation)
     e = bc
@@ -914,11 +959,38 @@ def main() -> int:
             s_t = slab.clone()
             ms12a = event_ms(lambda: l21_trim(s_t, pos1, ui_p, 0, 0))
             pms12a = event_ms(lambda: l21_trim_plain(s_t, pos1, ui_p, 0, 0))
-            ms12b = event_ms(lambda: upd_wide(s_t, l_k, rb_p, 0))
+            # the L21 pass as one PyTorch call: the bf16 panel by U11^-1
+            # (bf16 operands, fp32 sums, no row mask)
+            p12 = s_t[:, :r]
+            lib12a = library(lambda: torch.matmul(p12, ui_p))
+            # the update pass's two instances of the Hopper routine (C through
+            # shared memory, the default; C in registers) in turns, and
+            # bitwise equal (the same products, the same subtract)
+            ms12s, ms12g = [], []
+            for _ in range(2):
+                ms12s.append(event_ms(lambda: upd_wide(s_t, l_k, rb_p, 0)))
+                ms12g.append(event_ms(lambda: upd_wide(s_t, l_k, rb_p, 0, smem_c=False)))
+                ms12g.append(event_ms(lambda: upd_wide(s_t, l_k, rb_p, 0, smem_c=False)))
+                ms12s.append(event_ms(lambda: upd_wide(s_t, l_k, rb_p, 0)))
+            ms12b = sum(ms12s) / len(ms12s)
+            ms12b_regs = sum(ms12g) / len(ms12g)
             pms12b = event_ms(lambda: upd_wide_plain(s_t, l_k, rb_p, 0))
             c12, u12_12 = s_t[:, r:], rb_p[:, r:]
             lib12b = library(lambda: torch.addmm(c12, l_k, u12_12, alpha=-1))
-            del s_t
+            # device times (CUDA graph replays) of both passes, both update
+            # instances and both library calls
+            dev12 = {"l21": graph_ms(lambda: l21_trim(s_t, pos1, ui_p, 0, 0)),
+                     "l21_lib": graph_ms(lambda: torch.matmul(p12, ui_p)),
+                     "upd": graph_ms(lambda: upd_wide(s_t, l_k, rb_p, 0)),
+                     "upd_regs": graph_ms(lambda: upd_wide(s_t, l_k, rb_p, 0, smem_c=False)),
+                     "upd_lib": graph_ms(lambda: torch.addmm(c12, l_k, u12_12, alpha=-1))}
+            s_x, s_y = slab.clone(), slab.clone()
+            upd_wide(s_x, l_k, rb_p, 0)
+            upd_wide(s_y, l_k, rb_p, 0, smem_c=False)
+            phase("k12_update_instances_bitwise", torch.equal(s_x, s_y),
+                  smem_c_ms="/".join(f"{t:.4f}" for t in ms12s),
+                  registers_ms="/".join(f"{t:.4f}" for t in ms12g))
+            del s_t, s_x, s_y, p12
         del s_k, s_p, s_u, after_l21
     del cases, slab
     # k2 bf16 at jj0 = 0: r pivot rows read, row block and U11^-1 written in
@@ -928,11 +1000,23 @@ def main() -> int:
     # k12 at jj0 = 0, m = n: the L21 pass reads the panel and writes it and
     # the side buffer (bf16), 2 m r^2 bf16-operand operations; the update
     # pass reads and writes the m x (bc - r) columns, reads L21 and U12
+    # (the L21 pass runs on FFMA: its floor there, 2 m r^2 over the fp32 rate,
+    # is recorded beside the bound)
     record("l21_trim", abs12a, abs12a / max(float(uni_b.float().abs().max()), 1.0), ms12a,
-           pms12a, bound(6 * n * r + 4 * n + 2 * r * r, 0, 2 * n * r * r), None)
+           pms12a, bound(6 * n * r + 4 * n + 2 * r * r, 0, 2 * n * r * r), lib12a,
+           device_ms=dev12["l21"],
+           library_device_ms=dev12["l21_lib"])
     record("upd_wide", abs12b, abs12b / float(uni_b.float().abs().max()), ms12b, pms12b,
            bound(4 * n * (bc - r) + 2 * n * r + 2 * r * (bc - r), 0,
-                 2 * n * r * (bc - r)), lib12b)
+                 2 * n * r * (bc - r)), lib12b, registers_epilogue_ms=ms12b_regs,
+           device_ms=dev12["upd"], registers_epilogue_device_ms=dev12["upd_regs"],
+           library_device_ms=dev12["upd_lib"])
+    print(f"[INFO] k12 L21 pass {ms12a:.4f} ms, device {dev12['l21']:.4f} ms (FFMA floor "
+          f"{bound(0, 2 * n * r * r)[0]:.4f} ms; torch.matmul {lib12a} ms, device "
+          f"{dev12['l21_lib']:.4f} ms); update pass, C through shared memory {ms12b:.4f} ms, "
+          f"device {dev12['upd']:.4f} ms; C in registers {ms12b_regs:.4f} ms, device "
+          f"{dev12['upd_regs']:.4f} ms (addmm {lib12b} ms, device {dev12['upd_lib']:.4f} ms)",
+          flush=True)
 
     # #4 on the bf16 matrix: exact
     a_k, a_p = hpl_b.clone(), hpl_b.clone()
@@ -958,7 +1042,8 @@ def main() -> int:
                                                           unitriangular=True))
     record_bf16("tri_inv", errs(pairs5b)[0], ms, pms,
                 bound(sum(4 * s * s for _, s in leaves), 0,
-                      sum(s ** 3 / 3 for _, s in leaves)), lib5b)
+                      sum(s ** 3 / 3 for _, s in leaves)), lib5b,
+                device_ms=graph_ms(lambda: tri_inv_leaves(l11_b, leaves)))
 
     # #6 bf16-C instance at e = 1024: within one bf16 ulp of the plain
     # version plus sum_slack (operands from three seeds), everything outside

@@ -1,4 +1,5 @@
-// The Hopper trailing GEMM of kernels 6 and 13: C = TC(fp32(C) - A @ B) in
+// The Hopper trailing GEMM of kernels 6 and 13, and kernel 12's update pass
+// (bf16 C, K = r <= 128): C = TC(fp32(C) - A @ B) in
 // place, A (M x K) and B (K x N) row-major bf16, the products summed in fp32
 // and rounded once on the store (the TPU epilogue
 // `(a.astype(f32) - acc).astype(out.dtype)`); TC is fp32 (MPF_BF16) or bf16
@@ -11,8 +12,8 @@
 // design keeps the tensor cores fed from a ring of tiles and lets C's
 // read-modify-write of one tile overlap the next tile's loads.
 //
-// Design (one routine, run by kernel 6's launch and inside kernel 13's
-// cooperative launch):
+// Design (one routine, run by kernel 6's launch, which kernel 12's update
+// pass shares, and inside kernel 13's cooperative launch):
 // - TMA tile loads: 2-D tensor maps with 128-byte swizzle, encoded on the
 //   host with the logical sizes as dims, so TMA zero-fills the ragged edges
 //   of M, N and K and never reads a column past K of an A that is a view.
@@ -37,6 +38,12 @@
 //   a batch's loads are issued together.  (Measured on the card: with the
 //   fragment's own 4- and 8-byte accesses the epilogue, not the products,
 //   was the bottleneck; PERF.md section 6.)
+// - An instance for bf16 C with C through shared memory (kSmemC): the
+//   producer loads each tile's C by TMA beside its A and B into one of two
+//   C slots, the consumers subtract there (swizzled, conflict-free 4-byte
+//   accesses), and a storing thread writes the tile back by TMA, so C's
+//   read-modify-write runs behind the products of the next tiles.  It has
+//   two A/B stages (K = 128 is two steps) to make room for the slots.
 // - No split-K: one block sums every output entry over all of K in one
 //   fixed order (ascending 64-deep steps, each four k16 products), so
 //   kernel 13 is bitwise kernel 6 and a taller or shifted C gives the same
@@ -62,6 +69,16 @@ constexpr uint32_t kBoxBytes = kBK * 64 * 2;         // one 64-column box of B: 
 constexpr uint32_t kBBytes = (kBN / 64) * kBoxBytes; // 32 KB of B a stage
 // 1024 bytes of alignment slack (the swizzle atom), the ring, the barriers
 constexpr int kSmem = 1024 + kStages * (kABytes + kBBytes) + 2 * kStages * 8;
+// The instance with C through shared memory (kSmemC, bf16 C only): a ring of
+// kStagesC A/B stages and kCSlots C tiles, each tile 2 x 4 boxes of 64 rows
+// x 64 columns with 128-byte swizzle; then the A/B ring's full and empty
+// barriers and the C slots' full, ready and empty barriers.
+constexpr int kStagesC = 2, kCSlots = 2;
+constexpr uint32_t kCBox = 64 * 64 * 2;               // 8 KB
+constexpr uint32_t kCBytes = 8 * kCBox;               // one 128 x 256 bf16 tile: 64 KB
+constexpr int kSmemBytesC = 1024 + kStagesC * (kABytes + kBBytes) + kCSlots * kCBytes +
+                            (2 * kStagesC + 3 * kCSlots) * 8;
+static_assert(kSmemBytesC <= 232448, "the shared-memory C instance must fit in one SM");
 // registers a thread: the producer's, the consumers', and the count both
 // return to where the threads meet again after the tiles (kernel 13)
 constexpr int kProducerRegs = 40, kConsumerRegs = 232, kRejoinRegs = 160;
@@ -85,6 +102,26 @@ __device__ __forceinline__ void load_2d(void* dst, const CUtensorMap* map, int c
       " [%0], [%1, {%2, %3}], [%4];" ::"r"(tma::smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(tma::smem_addr(bar))
       : "memory");
+}
+
+// one 2-D TMA store of a box from shared memory at (c0 = column, c1 = row);
+// the tensor map's logical sizes clip it
+__device__ __forceinline__ void store_2d(const CUtensorMap* map, int c0, int c1, const void* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(tma::smem_addr(src))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// the committed stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+// the committed stores are done
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
@@ -226,23 +263,42 @@ __device__ __forceinline__ void tile_origin(int t, int tiles_m, int tiles_n, int
 }
 
 // The whole routine, run by every thread of a kThreads-thread block with
-// kSmem bytes of dynamic shared memory; blocks stride over the tiles.
-// kRejoin: every thread leaves with kRejoinRegs registers, so code after it
-// (kernel 13's exchange) runs on all warps.
-template <typename TC, bool kRejoin>
-__device__ __forceinline__ void run(const CUtensorMap* tmA, const CUtensorMap* tmB, int M,
-                                    int N, int K, TC* __restrict__ C, i64 ldc) {
+// kSmem bytes of dynamic shared memory (kSmemBytesC for the kSmemC instance);
+// blocks stride over the tiles.  kRejoin: every thread leaves with
+// kRejoinRegs registers, so code after it (kernel 13's exchange) runs on all
+// warps.  kSmemC (bf16 C): the producer also loads each tile's C by TMA
+// (tmC: boxes of 64 x 64, 128-byte swizzle) into one of two C slots
+// together with its A and B, the consumers subtract in shared memory, and a
+// storing thread of the producer warpgroup writes the tile back by TMA, so
+// one tile's C traffic overlaps the neighbouring tiles' products and
+// epilogues; the A/B ring has two stages (K = 128 is two of them).
+template <typename TC, bool kRejoin, bool kSmemC = false>
+__device__ __forceinline__ void run(const CUtensorMap* tmA, const CUtensorMap* tmB,
+                                    const CUtensorMap* tmC, int M, int N, int K,
+                                    TC* __restrict__ C, i64 ldc) {
+  static_assert(!kSmemC || sizeof(TC) == 2, "the shared-memory C instance is bf16 C only");
+  constexpr int kSt = kSmemC ? kStagesC : kStages;
   extern __shared__ uint8_t sm90_smem[];
   uint8_t* smem = sm90_smem + ((1024 - (tma::smem_addr(sm90_smem) & 1023)) & 1023);
-  uint8_t* sA = smem;                                  // kStages x 128 x 64
-  uint8_t* sB = smem + kStages * kABytes;              // kStages x 4 boxes of 64 x 64
-  uint64_t* full = reinterpret_cast<uint64_t*>(sB + kStages * kBBytes);
-  uint64_t* empty = full + kStages;
+  uint8_t* sA = smem;                                  // kSt x 128 x 64
+  uint8_t* sB = smem + kSt * kABytes;                  // kSt x 4 boxes of 64 x 64
+  uint8_t* sC = sB + kSt * kBBytes;                    // kSmemC: kCSlots x 8 boxes
+  uint64_t* full = reinterpret_cast<uint64_t*>(sC + (kSmemC ? kCSlots * kCBytes : 0));
+  uint64_t* empty = full + kSt;
+  uint64_t* cfull = empty + kSt;    // kSmemC: a slot's C has landed
+  uint64_t* cready = cfull + kCSlots;  // its new values are in shared memory
+  uint64_t* cempty = cready + kCSlots;  // its store has read them
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kSt; ++s) {
       tma::mbar_init(&full[s], 1);               // the producer's arrive (+ the bytes)
       tma::mbar_init(&empty[s], kConsumers * 4);  // lane 0 of every consumer warp
     }
+    if constexpr (kSmemC)
+      for (int s = 0; s < kCSlots; ++s) {
+        tma::mbar_init(&cfull[s], 1);
+        tma::mbar_init(&cready[s], kConsumers * 4);
+        tma::mbar_init(&cempty[s], 1);              // the storing thread
+      }
     tma::fence_barrier_init();
   }
   __syncthreads();
@@ -257,11 +313,27 @@ __device__ __forceinline__ void run(const CUtensorMap* tmA, const CUtensorMap* t
     if (threadIdx.x == 0 && tiles > 0) {
       asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(tmA)) : "memory");
       asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(tmB)) : "memory");
+      if constexpr (kSmemC)
+        asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(tmC)) : "memory");
       int stage = 0;
       uint32_t phase = 0;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int lt = 0;  // this block's tile count
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++lt) {
         int m0, n0;
         tile_origin(t, tiles_m, tiles_n, m0, n0);
+        if constexpr (kSmemC) {
+          // C first: its slot frees when the tile two back is stored, before
+          // this tile's A/B stages free
+          const int slot = lt % kCSlots;
+          tma::mbar_wait(&cempty[slot], ((lt / kCSlots) & 1) ^ 1);  // the first use passes
+          tma::mbar_arrive_expect_tx(&cfull[slot], kCBytes);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int j = 0; j < kBN / 64; ++j)
+              load_2d(sC + slot * kCBytes + (h * 4 + j) * kCBox, tmC, n0 + 64 * j, m0 + 64 * h,
+                      &cfull[slot]);
+        }
         for (int kb = 0; kb < kblocks; ++kb) {
           tma::mbar_wait(&empty[stage], phase ^ 1);  // the first round passes
           tma::mbar_arrive_expect_tx(&full[stage], kABytes + kBBytes);
@@ -270,12 +342,31 @@ __device__ __forceinline__ void run(const CUtensorMap* tmA, const CUtensorMap* t
           for (int j = 0; j < kBN / 64; ++j)
             load_2d(sB + stage * kBBytes + j * kBoxBytes, tmB, n0 + 64 * j, kb * kBK,
                     &full[stage]);
-          if (++stage == kStages) {
+          if (++stage == kSt) {
             stage = 0;
             phase ^= 1;
           }
         }
       }
+    } else if (kSmemC && threadIdx.x == 32 && tiles > 0) {
+      // the storing thread: each tile's C back by TMA once both consumer
+      // warpgroups have written it, then its slot is released
+      int lt = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++lt) {
+        int m0, n0;
+        tile_origin(t, tiles_m, tiles_n, m0, n0);
+        const int slot = lt % kCSlots;
+        tma::mbar_wait(&cready[slot], (lt / kCSlots) & 1);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < kBN / 64; ++j)
+            store_2d(tmC, n0 + 64 * j, m0 + 64 * h, sC + slot * kCBytes + (h * 4 + j) * kCBox);
+        bulk_commit();
+        bulk_wait_read();
+        mbar_arrive(&cempty[slot]);
+      }
+      bulk_wait();
     }
     __syncwarp();
     if constexpr (kRejoin) setmaxnreg_inc<kRejoinRegs>();
@@ -286,7 +377,8 @@ __device__ __forceinline__ void run(const CUtensorMap* tmA, const CUtensorMap* t
     float d[128];
     int stage = 0;
     uint32_t phase = 0;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    int lt = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++lt) {
       int m0, n0;
       tile_origin(t, tiles_m, tiles_n, m0, n0);
 #pragma unroll
@@ -311,7 +403,7 @@ __device__ __forceinline__ void run(const CUtensorMap* tmA, const CUtensorMap* t
         wgmma_wait<1>();  // the previous step's products are done: free its stage
         if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
         prev = stage;
-        if (++stage == kStages) {
+        if (++stage == kSt) {
           stage = 0;
           phase ^= 1;
         }
@@ -319,6 +411,36 @@ __device__ __forceinline__ void run(const CUtensorMap* tmA, const CUtensorMap* t
       wgmma_wait<0>();
       fence_operands(d);
       if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+
+      if constexpr (kSmemC) {
+        // C in shared memory: box j / 8 of this warpgroup's half, row rl (+ 8
+        // i), 16-byte chunk j % 8 swizzled by the row's low bits (rl % 8 =
+        // lane / 4), 4 bytes (the fragment's two adjacent entries) a lane:
+        // the 8 rows of a warp instruction hit 8 different chunks, no bank
+        // conflict.  Rows and columns past M and N hold TMA's zeros and are
+        // clipped by the store.
+        const int slot = lt % kCSlots;
+        tma::mbar_wait(&cfull[slot], (lt / kCSlots) & 1);
+        uint8_t* cs = sC + slot * kCBytes + cw * 4 * kCBox;
+        const int rl = warp * 16 + (lane >> 2);
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j) {
+          uint8_t* box = cs + (j >> 3) * kCBox + (((j & 7) ^ (lane >> 2)) << 4) + 4 * (lane & 3);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            uint32_t* p = reinterpret_cast<uint32_t*>(box + (rl + 8 * i) * 128);
+            const uint32_t u = *p;
+            const float lo = __fsub_rn(__uint_as_float(u << 16), d[4 * j + 2 * i]);
+            const float hi = __fsub_rn(__uint_as_float(u & 0xffff0000u), d[4 * j + 2 * i + 1]);
+            *p = (uint32_t)__bfloat16_as_ushort(from_f32<__nv_bfloat16>(lo)) |
+                 (uint32_t)__bfloat16_as_ushort(from_f32<__nv_bfloat16>(hi)) << 16;
+          }
+        }
+        tma::fence_proxy_async();  // the writes, before the async-proxy store reads them
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&cready[slot]);
+        continue;  // the register epilogue below is the other instance's
+      }
 
       // accumulator fragment: d[4j + 2i + c] is row 16 warp + lane/4 + 8i,
       // column 8j + 2 (lane % 4) + c of this warpgroup's 64 x 256
@@ -467,6 +589,15 @@ inline long long tile_count(int M, int N, int K) {
   if (M <= 0 || N <= 0 || K <= 0) return 0;
   return (long long)((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
 }
+
+// C = bf16(fp32(C) - A @ B) on the routine (defined in gemm_sub.cu, the one
+// translation unit that instantiates its kernels): kernel 6's bf16-C launch,
+// which kernel 12's update pass runs too.  smem_c takes the instance with C
+// through shared memory where C's base and row stride are multiples of 16
+// bytes (else the register epilogue, which reads C in place at any
+// alignment).  Returns cudaGetLastError() or the encode error.
+int launch_bf16c(int M, int N, int K, const void* A, i64 lda, const void* B, i64 ldb,
+                 __nv_bfloat16* C, i64 ldc, bool smem_c, cudaStream_t st);
 
 }  // namespace sm90
 }  // namespace gemm

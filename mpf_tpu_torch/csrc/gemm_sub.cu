@@ -15,7 +15,8 @@
 // (gemm_ffma.cuh).
 //
 // Design: the bf16-operand instances (fp32 C, bf16 C) run the Hopper
-// routine of gemm_sm90.cuh: TMA tile loads into an mbarrier ring, a
+// routine of gemm_sm90.cuh (kernel 12's update pass runs its bf16-C launch,
+// launch_bf16c, too): TMA tile loads into an mbarrier ring, a
 // producer warpgroup and two wgmma consumer warpgroups, one persistent
 // block per SM, C read and written once per tile in the epilogue (the TPU
 // kernel's point: no separate product array and subtract pass).  The
@@ -60,7 +61,7 @@ int launch(const Args& g, cudaStream_t st) {
   if (err) return err;
   const void* kern =
       tma ? (const void*)ffma_sub_kernel<true> : (const void*)ffma_sub_kernel<false>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  cudaError_t e = dyn_smem(kern, kSmem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)tile_count(g.M, g.N));
   if (tma)
@@ -91,31 +92,56 @@ int launch_gemm_sub(int mode, int M, int N, int K, const void* A, i64 lda,
 
 namespace sm90 {
 
-template <typename TC>
+template <typename TC, bool kSmemC>
 __global__ void __launch_bounds__(kThreads, 1)
     trailing_kernel(const __grid_constant__ CUtensorMap tmA,
-                    const __grid_constant__ CUtensorMap tmB, int M, int N, int K,
+                    const __grid_constant__ CUtensorMap tmB,
+                    const __grid_constant__ CUtensorMap tmC, int M, int N, int K,
                     TC* __restrict__ C, i64 ldc) {
-  run<TC, false>(&tmA, &tmB, M, N, K, C, ldc);
+  run<TC, false, kSmemC>(&tmA, &tmB, &tmC, M, N, K, C, ldc);
+}
+
+// C (M x N) at a 16-byte base with a row stride that is a multiple of 16
+// bytes: TMA reads and writes it in place
+inline bool c_tma_ok(const void* C, i64 ldc, size_t es) {
+  return (reinterpret_cast<uintptr_t>(C) & 15) == 0 && (ldc * (i64)es) % 16 == 0;
 }
 
 template <typename TC>
 int launch(int M, int N, int K, const void* A, i64 lda, const void* B, i64 ldb, TC* C,
-           i64 ldc, cudaStream_t st) {
+           i64 ldc, bool smem_c, cudaStream_t st) {
   const long long tiles = tile_count(M, N, K);
   if (tiles == 0) return (int)cudaGetLastError();
-  CUtensorMap ta, tb;
+  CUtensorMap ta, tb, tc;
   int err = encode_operands(&ta, &tb, M, N, K, A, lda, B, ldb);
   if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(trailing_kernel<TC>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  memset(&tc, 0, sizeof(tc));
+  const void* kern = (const void*)trailing_kernel<TC, false>;
+  int smem = kSmem;
+  if constexpr (sizeof(TC) == 2) {
+    if (smem_c && c_tma_ok(C, ldc, sizeof(TC))) {
+      // C's own map: boxes of 64 rows x 64 columns, both for the loads and
+      // for the stores
+      err = encode(&tc, C, M, N, ldc, 64);
+      if (err) return err;
+      kern = (const void*)trailing_kernel<TC, true>;
+      smem = kSmemBytesC;
+    }
+  }
+  cudaError_t e = dyn_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
-  int dev = 0, nsm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  const int nsm = sm_count();
   const int grid = (int)(tiles < nsm ? tiles : nsm);
-  trailing_kernel<TC><<<grid, kThreads, kSmem, st>>>(ta, tb, M, N, K, C, ldc);
+  if (smem == kSmem)
+    trailing_kernel<TC, false><<<grid, kThreads, smem, st>>>(ta, tb, tc, M, N, K, C, ldc);
+  else if constexpr (sizeof(TC) == 2)
+    trailing_kernel<TC, true><<<grid, kThreads, smem, st>>>(ta, tb, tc, M, N, K, C, ldc);
   return (int)cudaGetLastError();
+}
+
+int launch_bf16c(int M, int N, int K, const void* A, i64 lda, const void* B, i64 ldb,
+                 __nv_bfloat16* C, i64 ldc, bool smem_c, cudaStream_t st) {
+  return launch(M, N, K, A, lda, B, ldb, C, ldc, smem_c, st);
 }
 
 }  // namespace sm90
@@ -123,17 +149,18 @@ int launch(int M, int N, int K, const void* A, i64 lda, const void* B, i64 ldb, 
 }  // namespace gemm
 
 // C[0:M, 0:N] -= A[0:M, 0:K] @ B[0:K, 0:N] with fp32 sums.  mode 0: bf16
-// operands on the tensor cores (the Hopper routine; A and B at 16-byte
-// aligned bases with row strides that are multiples of 8 elements, else the
-// tensor maps fail to encode and the call returns an error), C fp32, or bf16
-// when c_bf16; mode 2: fp32 operands on FFMA, C fp32.
+// operands on the tensor cores (the Hopper routine, register epilogue; A and
+// B at 16-byte aligned bases with row strides that are multiples of 8
+// elements, else the tensor maps fail to encode and the call returns an
+// error), C fp32, or bf16 when c_bf16; mode 2: fp32 operands on FFMA, C fp32.
 MPF_API int mpf_trailing_sub(int mode, int M, int N, int K, const void* A, i64 lda,
                              const void* B, i64 ldb, void* C, int c_bf16, i64 ldc,
                              void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (mode == 0)
-    return c_bf16 ? gemm::sm90::launch(M, N, K, A, lda, B, ldb, (__nv_bfloat16*)C, ldc, st)
-                  : gemm::sm90::launch(M, N, K, A, lda, B, ldb, (float*)C, ldc, st);
+    return c_bf16 ? gemm::sm90::launch(M, N, K, A, lda, B, ldb, (__nv_bfloat16*)C, ldc, false,
+                                       st)
+                  : gemm::sm90::launch(M, N, K, A, lda, B, ldb, (float*)C, ldc, false, st);
   if (mode != 2 || c_bf16) return (int)cudaErrorInvalidValue;
   return gemm::launch_gemm_sub(mode, M, N, K, A, lda, B, ldb, (float*)C, ldc, nullptr, 0, st);
 }

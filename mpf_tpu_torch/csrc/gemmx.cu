@@ -111,7 +111,7 @@ __global__ void __launch_bounds__(gemm::sm90::kThreads, 1)
                       const __grid_constant__ CUtensorMap tmB, int M, int N, int K, TC* C,
                       i64 ld, E* a, int w, int nr, int k, const int* __restrict__ glist,
                       const int* __restrict__ dests, E* __restrict__ pivrows) {
-  gemm::sm90::run<TC, true>(&tmA, &tmB, M, N, K, C, ld);
+  gemm::sm90::run<TC, true>(&tmA, &tmB, nullptr, M, N, K, C, ld);
   if (nr > 0) exchange(a, ld, w, nr, k, glist, dests, pivrows);
 }
 
@@ -119,12 +119,10 @@ __global__ void __launch_bounds__(gemm::sm90::kThreads, 1)
 // work has tiles or band rows, at most as many as can be resident
 int launch_coop(const void* kern, int threads, int smem, long long tiles, int nr, void** args,
                 cudaStream_t st) {
-  int dev = 0, nsm = 0, occ = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  const int nsm = sm_count();
+  int occ = 0;
   if (smem > 0) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaError_t err = dyn_smem(kern, smem);
     if (err != cudaSuccess) return (int)err;
   }
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, threads, smem);

@@ -212,11 +212,8 @@ Plan plan(int m, int r, int tbytes, int gmax, int nsm, int optin) {
 }
 
 Plan device_plan(int m, int r, int tbytes, int gmax) {
-  int dev = 0, nsm = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return plan(m, r, tbytes, gmax, nsm, optin);
+  return plan(m, r, tbytes, gmax, sm_count(),
+              device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin));
 }
 
 template <typename T, typename Tin>
@@ -224,12 +221,10 @@ int launch(int m, int r, const void* in, i64 ld, int off, const int* prev, int* 
            int* perm, int* cperm, int* srcs, void* work, int gmax, cudaStream_t stream) {
   Plan p = device_plan(m, r, (int)sizeof(T), gmax);
   auto kern = hgetf2_kernel<T, Tin>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  cudaError_t err = dyn_smem((const void*)kern, (int)p.smem);
   if (err != cudaSuccess) return (int)err;
-  int occ = 0, dev = 0, nsm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  int occ = 0;
+  const int nsm = sm_count();
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, kThreads, p.smem);
   if (err != cudaSuccess) return (int)err;
   if (occ * nsm < p.G) return (int)cudaErrorCooperativeLaunchTooLarge;

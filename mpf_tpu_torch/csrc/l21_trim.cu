@@ -16,49 +16,40 @@
 // panel edge and pass lanes < glo through; here the update starts at column
 // jj0 + r.  Columns left of the panel are never touched.
 //
-// What bounds it on the H100: bytes.  Per panel the L21 pass reads m x r
-// and writes 2 m x r bf16 (2 m r^2 flops: small); the update pass reads and
-// writes m x (bc - jj0 - r) bf16 and does 2 m r (bc - jj0 - r) flops, far
-// below the bf16 tensor-core ridge.
+// What bounds it on the H100: the L21 pass, operations (2 m r^2 fp32 FMA:
+// 8.0 us at m = 16384, r = 128); the update pass, bytes (it reads and
+// writes m x (bc - jj0 - r) bf16: 18.8 us at block column offset 0, against
+// 2 m r (bc - jj0 - r) flops, far below the bf16 tensor-core ridge).
 //
-// Design: (1) the L21 tile kernel of common.cuh (l21::, shared with kernel
-// 3): one block per 64-row tile, U11^{-1} and the tile's panel columns in
-// shared memory as fp32, fp32 FMA over exact bf16 products, one rounding to
-// bf16.  (2) upd_wide_kernel: the shared mma.sync tile routine
-// (gemm::tile_mma) with the bf16-C epilogue and no row mask, one 128 x 128
-// output tile per block.
-#include "common.cuh"
-
-namespace {
+// Design: (1) the L21 pass of l21.cuh (shared with kernel 3): an FFMA GEMM,
+// 8 x 8 outputs a thread, TMA-fed stages, bf16 widened as it is read, each
+// entry one fmaf chain in ascending k, rounded once to bf16.
+// (2) the update pass is kernel 6's bf16-C function at K = r, so it runs
+// kernel 6's Hopper routine (gemm_sm90.cuh: TMA loads, wgmma, persistent
+// tiles), by default the instance that carries C through shared memory by
+// TMA, so that C's read-modify-write overlaps the neighbouring tiles'
+// products.  The side buffer's rows are padded to a multiple of 8 elements
+// so that TMA reads it in place.
+#include "l21.cuh"
 
 typedef __nv_bfloat16 bf;
 
-__global__ void __launch_bounds__(gemm::kThreads)
-    upd_wide_kernel(int m, int w, int r, const bf* __restrict__ l21buf,
-                    const bf* __restrict__ u12, i64 ldu, bf* __restrict__ c, i64 ldc) {
-  gemm::tile_mma<bf, bf, bf>(m, w, r, l21buf, r, u12, ldu, c, ldc, nullptr, 0,
-                             blockIdx.y * gemm::kBM, blockIdx.x * gemm::kBN);
-}
-
-}  // namespace
-
 // L21 pass on the bf16 slab (row stride ld), panel at column jj0; l21buf is
-// (m, r) bf16.
+// (m, r) bf16 at row stride ldl.
 MPF_API int mpf_l21_trim(int m, int r, void* slab, i64 ld, int jj0, const int* pos,
-                         int thr, const void* uinv, void* l21buf, void* stream) {
-  if (m <= 0) return (int)cudaGetLastError();
-  return l21::launch<bf>(m, r, (bf*)slab, ld, jj0, pos, thr, (const bf*)uinv,
-                         (bf*)l21buf, (cudaStream_t)stream);
+                         int thr, const void* uinv, void* l21buf, i64 ldl, void* stream) {
+  return l21::launch<bf>(m, r, (bf*)slab, ld, jj0, pos, thr, (const bf*)uinv, (bf*)l21buf,
+                         ldl, (cudaStream_t)stream);
 }
 
-// Update pass: c[0:m, 0:w] = bf16(c - l21buf @ u12) with u12 (r, w) at row
-// stride ldu and c at row stride ldc (both views of the row block and the
-// slab at column jj0 + r).
-MPF_API int mpf_upd_wide(int m, int w, int r, const void* l21buf, const void* u12, i64 ldu,
-                         void* c, i64 ldc, void* stream) {
+// Update pass: c[0:m, 0:w] = bf16(c - l21buf @ u12), l21buf (m, r) at row
+// stride ldl, u12 (r, w) at row stride ldu, c at row stride ldc (views of the
+// row block and the slab at column jj0 + r).  l21buf and u12 at 16-byte
+// bases with row strides that are multiples of 8 elements (TMA); smem_c: C
+// through shared memory where its base and stride allow.
+MPF_API int mpf_upd_wide(int m, int w, int r, const void* l21buf, i64 ldl, const void* u12,
+                         i64 ldu, void* c, i64 ldc, int smem_c, void* stream) {
   if (m <= 0 || w <= 0) return (int)cudaGetLastError();
-  dim3 grid((w + gemm::kBN - 1) / gemm::kBN, (m + gemm::kBM - 1) / gemm::kBM);
-  upd_wide_kernel<<<grid, gemm::kThreads, 0, (cudaStream_t)stream>>>(
-      m, w, r, (const bf*)l21buf, (const bf*)u12, ldu, (bf*)c, ldc);
-  return (int)cudaGetLastError();
+  return gemm::sm90::launch_bf16c(m, w, r, l21buf, ldl, u12, ldu, (bf*)c, ldc, smem_c != 0,
+                                  (cudaStream_t)stream);
 }

@@ -96,16 +96,13 @@ __global__ void __launch_bounds__(kThreads)
 template <bool kInv>
 int launch(int r, const float* in, i64 ld, float* lu, float* linv, float* uinv, int* info,
            cudaStream_t stream) {
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const int optin = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
   const size_t nblk = kInv ? 3 : 1;
   size_t smem = ((size_t)r + nblk * r * r) * sizeof(float);
   int in_smem = smem + 1024 <= (size_t)optin;
   if (!in_smem) smem = (size_t)r * sizeof(float);
   if (smem + 1024 > (size_t)optin) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      npv_kernel<kInv>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = dyn_smem((const void*)npv_kernel<kInv>, (int)smem);
   if (err != cudaSuccess) return (int)err;
   npv_kernel<kInv><<<1, kThreads, smem, stream>>>(r, in, ld, lu, linv, uinv, info, in_smem);
   return (int)cudaGetLastError();

@@ -15,22 +15,22 @@
 // flops — memory traffic and launch latency at the slice's shapes, not the
 // tensor cores.
 //
-// Design: two launches behind one entry point.  (1) the L21 tile kernel
-// (common.cuh, l21::): one block per 64-row tile holds U11^{-1} and the
-// tile's panel columns in shared memory and computes L21 with fp32 FFMA (the
-// product in the kernel's body, not a library call); it writes L21 into the
-// panel and a row-masked copy (zeros on frozen rows) into a side buffer.
-// (2) the shared tiled C -= A B routine (common.cuh) with the same row mask
-// applies the update.  The TPU's per-grid-step scratch carry of L21 becomes
-// the side buffer, since Hopper blocks run in no order.
-#include "common.cuh"
+// Design: two launches behind one entry point.  (1) the L21 pass of l21.cuh
+// (shared with kernel 12): an FFMA GEMM of 128-row tiles, 8 x 8 outputs a
+// thread, fed by TMA; it writes L21 into the panel and a row-masked copy
+// (zeros on frozen rows) into a side buffer.  (2) the masked C -= A B
+// update with the same row mask: tile_mma (common.cuh) for bf16 operands,
+// the FFMA routine (gemm_ffma.cuh) for fp32 operands.  The TPU's
+// per-grid-step scratch carry of L21 becomes the side buffer, since Hopper
+// blocks run in no order.
+#include "l21.cuh"
 
 MPF_API int mpf_panel_update(int m, int bc, int r, float* slab, i64 ld, int jj0,
                              const int* pos, int thr, const float* rowblock,
                              const float* uinv, float* l21buf, int gemm_bf16,
                              void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  int err = l21::launch<float>(m, r, slab, ld, jj0, pos, thr, uinv, l21buf, st);
+  int err = l21::launch<float>(m, r, slab, ld, jj0, pos, thr, uinv, l21buf, r, st);
   if (err != 0) return err;
   int w = bc - jj0 - r;
   if (w <= 0) return (int)cudaGetLastError();

@@ -20,7 +20,7 @@
 //
 // Design: one block per 64-row tile.  The block stages U11^{-1} and the
 // tile's panel columns in shared memory as fp32, computes L21 with fp32 FFMA
-// in the order of the L21 pass of kernels 3 and 12 (common.cuh, l21::), so
+// in the order of the L21 pass of kernels 3 and 12 (l21.cuh), so
 // L21 is bitwise theirs, writes it into the panel and keeps the update
 // operand (zero on frozen rows) in shared memory, transposed.  Then it walks
 // the columns right of the panel in 64-wide chunks: each chunk of U12 is
@@ -132,8 +132,7 @@ template <typename T>
 int launch(int m, int bc, int r, T* slab, i64 ld, int jj0, const int* pos, int thr,
            const T* rowblock, const T* uinv, int bf16_ops, cudaStream_t st) {
   size_t smem = (size_t)(max(r * r, r * kCols) + r * kRows) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      full_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = dyn_smem((const void*)full_kernel<T>, (int)smem);
   if (err != cudaSuccess) return (int)err;
   full_kernel<T><<<(m + kRows - 1) / kRows, kThreads, smem, st>>>(
       m, bc, r, slab, ld, jj0, pos, thr, rowblock, uinv, bf16_ops);

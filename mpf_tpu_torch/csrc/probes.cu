@@ -319,7 +319,7 @@ __global__ void __launch_bounds__(kXCols)
 
 int set_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  return (int)dyn_smem(fn, (int)bytes);
 }
 
 }  // namespace
@@ -352,9 +352,7 @@ MPF_API int mpf_probe_bulk_copy(const void* sched, int off, int count, const voi
 MPF_API int mpf_probe_row_ring(int n, int w, const void* src, i64 lds, int nrows, int stride,
                                int depth, int target, void* out, void* stream) {
   if (depth < 1 || depth > kRingMaxDepth) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int sms = sm_count();
   const size_t smem = kRingBarBytes + (size_t)depth * kRingChunk * 4;
   int err = set_smem((const void*)row_ring_kernel, smem);
   if (err) return err;

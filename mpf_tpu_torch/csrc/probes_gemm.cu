@@ -151,8 +151,7 @@ MPF_API int mpf_probe_overlap(int ti, int t, int kk, const void* L, const void* 
   using namespace gemm;
   const int blocks = ((ti + kBM - 1) / kBM) * ((t + kBN - 1) / kBN);
   const size_t smem = 128 + (size_t)kSlots * kPiece;
-  cudaError_t err = cudaFuncSetAttribute(overlap_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = dyn_smem((const void*)overlap_kernel, (int)smem);
   if (err != cudaSuccess) return (int)err;
   overlap_kernel<<<blocks, kOverlapThreads, smem, (cudaStream_t)stream>>>(
       ti, t, kk, (const bf*)L, (const bf*)U, (float*)keep, steps, (const unsigned char*)xsrc,

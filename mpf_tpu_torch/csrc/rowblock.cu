@@ -129,16 +129,14 @@ template <typename T>
 int launch(int r, int bc, const T* slab, i64 ld, const int* glist, int jj0, T* rowblock,
            T* uinv, float* linv, int* info, cudaStream_t st) {
   size_t smem1 = (size_t)(3 * r * r + r) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      diag_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+  cudaError_t err = dyn_smem((const void*)diag_kernel<T>, (int)smem1);
   if (err != cudaSuccess) return (int)err;
   diag_kernel<T><<<1, kDiagThreads, smem1, st>>>(r, slab, ld, glist, jj0, bc, rowblock,
                                                  uinv, linv, info);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   size_t smem2 = (size_t)(r * r + r * kTileCols) * sizeof(float);
-  err = cudaFuncSetAttribute(u12_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem2);
+  err = dyn_smem((const void*)u12_kernel<T>, (int)smem2);
   if (err != cudaSuccess) return (int)err;
   u12_kernel<T><<<(bc + kTileCols - 1) / kTileCols, kU12Threads, smem2, st>>>(
       r, slab, ld, glist, jj0, bc, linv, rowblock);

@@ -269,18 +269,14 @@ template <typename S, typename T>
 int launch(int m, int r, const S* slab, i64 ld, int jj0, int off, int* pos,
            int* piv, int* glist, int quant16, void* rec, float* pinfo, int gmax,
            cudaStream_t stream) {
-  int dev = 0, nsm = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const int nsm = sm_count(), optin = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
   int G = min(nsm, gmax);
   int rpb = (m + G - 1) / G;
   G = (m + rpb - 1) / rpb;
   size_t smem = (size_t)rpb * r * sizeof(T) + (size_t)rpb * (2 * kW * sizeof(float) + sizeof(int));
   smem = (smem + 15) & ~(size_t)15;
   if ((int)smem > optin) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      strip_kernel<S, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = dyn_smem((const void*)strip_kernel<S, T>, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int occ = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, strip_kernel<S, T>, kThreads, smem);

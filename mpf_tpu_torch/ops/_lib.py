@@ -86,8 +86,9 @@ KERNELS = (
 
 launches = {k: 0 for k in KERNELS}
 plain_calls = {k: 0 for k in KERNELS}
-#: Copies made by :func:`gemm_operand`: bf16 GEMM operands of kernels 6 and
-#: 13 that TMA could not read in place (0 on the main path).
+#: Copies made by :func:`gemm_operand`: bf16 GEMM operands of kernels 6, 12
+#: (its update pass) and 13 that TMA could not read in place (0 on the main
+#: path).
 copies = {"gemm_operand": 0}
 
 P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -97,8 +98,8 @@ _SIGS = {
     "mpf_strip_record_bytes": [],
     "mpf_rowblock": [I, I, P, L, P, I, P, P, P, P, I, P],
     "mpf_panel_update": [I, I, I, P, L, I, P, I, P, P, P, I, P],
-    "mpf_l21_trim": [I, I, P, L, I, P, I, P, P, P],
-    "mpf_upd_wide": [I, I, I, P, P, L, P, L, P],
+    "mpf_l21_trim": [I, I, P, L, I, P, I, P, P, L, P],
+    "mpf_upd_wide": [I, I, I, P, L, P, L, P, L, I, P],
     "mpf_rows_exchange": [I, I, P, L, I, P, P, P, I, P],
     "mpf_tri_inv": [I, I, P, L, P, P, P, L, I, P],
     "mpf_trailing_sub": [I, I, I, I, P, L, P, L, P, I, L, P],

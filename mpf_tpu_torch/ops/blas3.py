@@ -23,6 +23,7 @@
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -149,24 +150,35 @@ def tri_inv_leaves_plain(l: torch.Tensor, leaves) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def _leaf_meta(leaves: tuple, device: torch.device) -> torch.Tensor:
+    """Kernel 5's leaf table on ``device``: the offsets, then the sizes
+    (int32).  Kept, so that a factorization copies it to the card once per
+    leaf list, not once per block column."""
+    return torch.tensor([o for o, _ in leaves] + [s for _, s in leaves],
+                        dtype=torch.int32).to(device)
+
+
 def tri_inv_leaves(l: torch.Tensor, leaves) -> torch.Tensor:
     """Kernel 5 wrapper: the inverses of the unit-lower leaves ``leaves``
     ((offset, size), size <= 128) of the square fp32 or bf16 ``l``, each at
     its diagonal position of the returned matrix (entries outside the
     leaves are undefined on the card, zero on the CPU).  CPU tensors take
-    the plain version; CUDA tensors launch the kernel (one block per
-    leaf)."""
+    the plain version; CUDA tensors launch the kernel (one launch for all
+    the leaves: each leaf's columns are independent forward substitutions,
+    spread over blocks of 8 columns)."""
     if not _lib.on_cuda(l):
         return tri_inv_leaves_plain(l, leaves)
     _lib.check(l.dtype in (torch.float32, torch.bfloat16) and l.dim() == 2
                and l.stride(1) == 1, "tri_inv: l must be a row-major fp32 or bf16 matrix")
-    sizes = [s for _, s in leaves]
-    _lib.check(max(sizes) <= 128, "tri_inv: leaves must be <= 128 wide")
-    meta = torch.tensor([o for o, _ in leaves] + sizes, dtype=torch.int32).to(l.device)
+    leaves = tuple((int(o), int(s)) for o, s in leaves)
+    widest = max(s for _, s in leaves)
+    _lib.check(widest <= 128, "tri_inv: leaves must be <= 128 wide")
+    meta = _leaf_meta(leaves, l.device)
     out = torch.empty(l.shape, dtype=l.dtype, device=l.device)
     nl = len(leaves)
-    _lib.call("mpf_tri_inv", nl, max(sizes), l.data_ptr(), l.stride(0),
-              meta.data_ptr(), meta[nl:].data_ptr(), out.data_ptr(), out.stride(0),
+    _lib.call("mpf_tri_inv", nl, widest, l.data_ptr(), l.stride(0),
+              meta.data_ptr(), meta.data_ptr() + 4 * nl, out.data_ptr(), out.stride(0),
               int(l.dtype == torch.bfloat16))
     _lib.counted_launch("tri_inv")
     return out

@@ -280,21 +280,23 @@ def l21_trim(slab, pos, uinv, j0: int, jj0: int):
     rows keep their values).  Returns the row-masked L21, (m, r) bf16 with
     zeros on the other rows, for :func:`upd_wide`.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel, and
+    the returned L21 is then a view whose rows are padded to a multiple of 8
+    elements, so that the update pass's TMA loads read it in place."""
     if not _lib.on_cuda(slab, pos, uinv):
         return l21_trim_plain(slab, pos, uinv, j0, jj0)
     _row_major(slab, "l21_trim: slab", (torch.bfloat16,))
     m, r = slab.shape[0], uinv.shape[0]
-    _lib.check(uinv.dtype == torch.bfloat16 and uinv.shape == (r, r),
-               "l21_trim: uinv must be (r, r) bf16")
+    _lib.check(uinv.dtype == torch.bfloat16 and uinv.shape == (r, r) and r <= 128,
+               "l21_trim: uinv must be (r, r) bf16, r <= 128")
     _lib.check(jj0 + r <= slab.shape[1], "l21_trim: panel outside the slab")
     pos = pos.to(torch.int32).contiguous()
     uinv = uinv.contiguous()
-    l21 = torch.empty((m, r), dtype=torch.bfloat16, device=slab.device)
+    buf = torch.empty((m, -(-r // 8) * 8), dtype=torch.bfloat16, device=slab.device)
     _lib.call("mpf_l21_trim", m, r, slab.data_ptr(), slab.stride(0), int(jj0),
-              pos.data_ptr(), int(j0 + r), uinv.data_ptr(), l21.data_ptr())
+              pos.data_ptr(), int(j0 + r), uinv.data_ptr(), buf.data_ptr(), buf.stride(0))
     _lib.counted_launch("l21_trim")
-    return l21
+    return buf[:, :r]
 
 
 def upd_wide_plain(slab, l21, rowblock, jj0):
@@ -307,26 +309,31 @@ def upd_wide_plain(slab, l21, rowblock, jj0):
     return slab
 
 
-def upd_wide(slab, l21, rowblock, jj0: int):
+def upd_wide(slab, l21, rowblock, jj0: int, smem_c: bool = True):
     """The update pass of kernel 12, IN PLACE on the bf16 ``slab`` (m, bc):
     A[:, c0:] = bf16(fp32(A[:, c0:]) - l21 @ rowblock[:, c0:]) with
     c0 = jj0 + r, bf16 operands and fp32 accumulation.  No row mask: the
     rows :func:`l21_trim` left alone carry L21 = 0 and are stored back
     unchanged.  Returns ``slab``.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch kernel 6's
+    Hopper routine (bf16 C), with C through shared memory when ``smem_c``
+    (and C's base and row stride allow it), else with the register
+    epilogue.  An operand that TMA cannot read in place is copied first
+    (:func:`_lib.gemm_operand`, counted)."""
     if not _lib.on_cuda(slab, l21, rowblock):
         return upd_wide_plain(slab, l21, rowblock, jj0)
     _row_major(slab, "upd_wide: slab", (torch.bfloat16,))
     m, bc = slab.shape
     r = l21.shape[1]
     c0 = jj0 + r
-    _lib.check(l21.dtype == rowblock.dtype == torch.bfloat16 and l21.is_contiguous()
+    _lib.check(l21.dtype == rowblock.dtype == torch.bfloat16 and l21.stride(1) == 1
                and l21.shape[0] == m and rowblock.shape == (r, bc)
                and rowblock.stride(1) == 1, "upd_wide: l21 (m, r) / rowblock (r, bc) bf16")
-    u12, c = rowblock[:, c0:], slab[:, c0:]
-    _lib.call("mpf_upd_wide", m, bc - c0, r, l21.data_ptr(), u12.data_ptr(),
-              rowblock.stride(0), c.data_ptr(), slab.stride(0))
+    l21, u12 = _lib.gemm_operand(l21), _lib.gemm_operand(rowblock[:, c0:])
+    c = slab[:, c0:]
+    _lib.call("mpf_upd_wide", m, bc - c0, r, l21.data_ptr(), l21.stride(0), u12.data_ptr(),
+              u12.stride(0), c.data_ptr(), slab.stride(0), int(bool(smem_c)))
     _lib.counted_launch("upd_wide")
     return slab
 

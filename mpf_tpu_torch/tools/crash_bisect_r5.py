@@ -3,7 +3,7 @@ each axis from (1024, 1024, 1024), on the card.
 
 The TPU tool bisected the shapes at which its compile helper crashed.  On the
 card the question is whether the port's tiled ``mma.sync`` routine
-(``gemm::tile_mma``, the routine of kernels 3, 6, 12 and 13) holds its rate
+(``gemm::tile_mma``, kernel 3's bf16-operand update) holds its rate
 across these shapes: ``out (s, w) = bf16(A @ B)``, fp32 sums, through
 ``mpf_probe_dot`` (tile_mma with its store epilogue).  Each leg is checked
 finite, as the tool checks it, and within one bf16 ulp plus

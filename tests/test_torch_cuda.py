@@ -450,6 +450,116 @@ def test_kernel12_on_card(cuda, jj0):
     assert _lib.launches["upd_wide"] == int(jj0 + r < bc)
 
 
+@pytest.mark.parametrize("r", [8, 48, 128])
+@pytest.mark.parametrize("m", [2000, 129])
+def test_kernel12_every_panel(cuda, m, r):
+    """Kernel 12 on every panel of a bc = 1024 slab (the update width from
+    1024 - r down to 1024 % r, 0 at r = 8 and 128), ragged m: L21 within one
+    bf16 ulp of the plain version, the update pass (fed the kernel's own
+    L21) within one bf16 ulp plus the fp32 sum-order bound, its two
+    instances (C through shared memory, C in registers) bitwise equal;
+    frozen rows and the columns left of the panel exact; one launch each,
+    no operand copy (the slab a view of a wider matrix)."""
+    rng = np.random.default_rng(1000 * r + m)
+    bc = 1024
+    mat = torch.from_numpy(rng.standard_normal((m, bc + 2048)).astype(np.float32)).to(
+        cuda).to(BF)
+    slab = mat[:, 1024:1024 + bc]
+    pos = torch.from_numpy((rng.permutation(m) + r).astype(np.int32)).to(cuda)
+    j0 = m // 3
+    frozen = pos < j0 + r   # a third of the rows
+    for jj0 in range(0, bc - r + 1, r):
+        rb = torch.from_numpy(rng.standard_normal((r, bc)).astype(np.float32)).to(cuda).to(BF)
+        ui = torch.triu(torch.from_numpy(rng.standard_normal((r, r)).astype(np.float32)
+                                         / 8)).to(cuda).to(BF)
+        a, b = mat.clone(), mat.clone()
+        sa, sb = a[:, 1024:1024 + bc], b[:, 1024:1024 + bc]
+        _lib.reset_counts()
+        la = l21_trim(sa, pos, ui, j0, jj0)
+        lb = l21_trim_plain(sb, pos, ui, j0, jj0)
+        assert within_bf16_ulp(la, lb) and within_bf16_ulp(sa, sb), jj0
+        assert torch.equal(sa[frozen], slab[frozen]) and not la[frozen].any()
+        c0 = jj0 + r
+        if c0 < bc:
+            c, d = a.clone(), a.clone()
+            sc, sd = c[:, 1024:1024 + bc], d[:, 1024:1024 + bc]
+            slack = sum_slack(sc[:, c0:], la, rb[:, c0:])
+            upd_wide(sa, la, rb, jj0)
+            upd_wide(sd, la, rb, jj0, smem_c=False)
+            upd_wide_plain(sc, la, rb, jj0)
+            assert within_bf16_ulp(sa[:, c0:], sc[:, c0:], slack), jj0
+            assert torch.equal(a, d), jj0
+            assert torch.equal(sa[:, :c0], sc[:, :c0]) and torch.equal(sa[frozen], slab[frozen])
+        assert torch.equal(a[:, :1024], mat[:, :1024]) and torch.equal(a[:, 2048:], mat[:, 2048:])
+        assert _lib.launches["l21_trim"] == 1 and _lib.launches["upd_wide"] == 2 * (c0 < bc)
+        assert _lib.copies["gemm_operand"] == 0
+
+
+def test_kernel12_unaligned_operands(cuda):
+    """Kernel 12's update pass with U12 at a column that is no multiple of 8
+    elements (r = 12): U12 is copied into a padded buffer (one copy
+    counted), the slab columns at an odd offset take the register epilogue
+    whatever smem_c asks: against the plain version."""
+    rng = np.random.default_rng(77)
+    m, bc, r, jj0 = 700, 300, 12, 24
+    mat = torch.from_numpy(rng.standard_normal((m, bc + 5)).astype(np.float32)).to(cuda).to(BF)
+    slab = mat[:, 3:3 + bc]
+    pos = torch.arange(m, dtype=torch.int32, device=cuda)
+    rb = torch.from_numpy(rng.standard_normal((r, bc)).astype(np.float32)).to(cuda).to(BF)
+    ui = torch.triu(torch.from_numpy(rng.standard_normal((r, r)).astype(np.float32) / 4)).to(
+        cuda).to(BF)
+    a, b = mat.clone(), mat.clone()
+    sa, sb = a[:, 3:3 + bc], b[:, 3:3 + bc]
+    la, lb = l21_trim(sa, pos, ui, 0, jj0), l21_trim_plain(sb, pos, ui, 0, jj0)
+    assert within_bf16_ulp(la, lb) and within_bf16_ulp(sa, sb)
+    c = a.clone()
+    sc = c[:, 3:3 + bc]
+    slack = sum_slack(sc[:, jj0 + r:], la, rb[:, jj0 + r:])
+    _lib.reset_counts()
+    upd_wide(sa, la, rb, jj0)
+    assert _lib.launches["upd_wide"] == 1 and _lib.copies["gemm_operand"] == 1
+    upd_wide_plain(sc, la, rb, jj0)
+    assert within_bf16_ulp(sa[:, jj0 + r:], sc[:, jj0 + r:], slack)
+    assert torch.equal(a[:, :3 + jj0 + r], c[:, :3 + jj0 + r])
+    assert torch.equal(a[:, 3 + bc:], mat[:, 3 + bc:])
+
+
+@pytest.mark.parametrize("dt", [torch.float32, BF])
+@pytest.mark.parametrize("n,leaves", [
+    (1000, None), (1, [(0, 1)]), (2, [(0, 2)]), (40, [(20, 17)]), (64, [(0, 64)]),
+    (200, [(73, 127)]), (128, [(0, 128)]), (300, [(0, 128), (128, 2), (130, 127), (257, 17)])],
+    ids=["leaves_1000", "s1", "s2", "s17", "s64", "s127", "s128", "mixed"])
+def test_tri_inv_kernel_leaves_bitwise(cuda, dt, n, leaves):
+    """Kernel 5 bitwise its plain version on leaf lists of every shape the
+    recursion makes (_leaves(1000, 128), ragged last leaf), single leaves
+    of 1, 2, 17, 64, 127 and 128 at any diagonal offset, and a mixed list,
+    fp32 and bf16, on a matrix of odd row stride (a view of a wider one);
+    the launch covers every leaf in one call."""
+    rng = np.random.default_rng(n)
+    leaves = _leaves(n, 128) if leaves is None else leaves
+    wide = torch.from_numpy(rng.uniform(-0.5, 0.5, (n, n + 3)).astype(np.float32)).to(cuda)
+    l = torch.tril(wide, -1).to(dt)[:, :n]
+    assert l.stride(0) == n + 3
+    _lib.reset_counts()
+    k = tri_inv_leaves(l, leaves)
+    assert _lib.launches["tri_inv"] == 1
+    p = tri_inv_leaves_plain(l, leaves)
+    for o, s in leaves:
+        assert torch.equal(k[o:o + s, o:o + s], p[o:o + s, o:o + s]), (o, s)
+
+
+def test_kernel12_factorization_calls_copy_nothing(cuda):
+    """ALL_BF16 on the fused route at n = 2048 (kernel 12 on views of the
+    working matrix): no operand copied for TMA, and the update pass
+    launched on every panel but the last of its block column."""
+    a = _hpl(2048, 8, cuda)
+    _lib.reset_counts()
+    res = mpf_factorize(a, r=128, policy=ALL_BF16)
+    assert _lib.copies["gemm_operand"] == 0
+    assert _lib.launches["l21_trim"] == 16 and _lib.launches["upd_wide"] == 14
+    assert check_factorization_device(a, res.lu, res.ipiv, nbe_tol=5e-2).ok
+
+
 def test_exchange_tri_inv_trailing_bf16(cuda):
     """Kernels 4 and 5 on bf16: exact; kernel 6's bf16-C instance within one
     bf16 ulp of its plain version plus the fp32 sum-order bound, ragged
