@@ -261,47 +261,6 @@ def phase(name: str, ok: bool, **fields) -> None:
         fail(f"phase {name} failed")
 
 
-def event_ms(fn, reps: int = 5) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` runs, CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, reps: int = 20) -> float:
-    """Device milliseconds of one ``fn()``: ``reps`` calls captured in one
-    CUDA graph, the graph replayed 5 times between CUDA events.  For
-    launches shorter than the host's time to issue them, where event_ms
-    times the host: the replay has no host work between the kernels."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(reps):
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(5):
-        g.replay()
-    end.record()
-    end.synchronize()
-    del g
-    return start.elapsed_time(end) / (5 * reps)
-
-
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -363,13 +322,13 @@ def main() -> int:
         getf2_npv_block, getf2_npv_inv_block, getf2_npv_inv_plain, hgetf2_panel_plain,
         hgetf2_panel_swaps, laswp_apply, laswp_plain)
     from mpf_tpu_torch.ops.panel_strip import (
-        SENT, strip_panel_pivots, strip_panel_pivots_plain)
+        SENT, barrier_probe, strip_panel_pivots, strip_panel_pivots_plain)
     from mpf_tpu_torch.precision import cast_to_panel
     from mpf_tpu_torch.utils import matgen
     from mpf_tpu_torch.utils.oracle import (
         check_factorization_device, ipiv_to_perm, sum_slack, tri_inv_slack, within_bf16_ulp,
         within_ulp)
-    from mpf_tpu_torch.utils.timing import cuda_time, tflops
+    from mpf_tpu_torch.utils.timing import cuda_time, event_ms, graph_ms, tflops
 
     dev = torch.device("cuda", 0)
     wall0 = time.perf_counter()
@@ -397,6 +356,19 @@ def main() -> int:
           kernels=len(checked),
           registers="/".join(str(v.get("registers")) for p in want_regs
                              for _, v in sorted(regs[p].items())))
+    # kernels 1 and 2 (twelve instances of kernel 1: slab and panel dtypes,
+    # one to three rows a thread, and three with more rows in shared memory;
+    # both launches of kernel 2, fp32 and bf16): registers, and no spill
+    want_panel = {"strip_kernel": 12, "diag_kernel": 2, "tail_kernel": 2}
+    regs12 = {pat: _lib.ptxas_report(pat) for pat in want_panel}
+    for pat, rep in regs12.items():
+        for name, v in sorted(rep.items()):
+            print(f"[INFO] ptxas {name}: {json.dumps(v)}", flush=True)
+    checked12 = [v for rep in regs12.values() for v in rep.values()]
+    phase("k1_k2_no_spill", all(len(regs12[p]) == k for p, k in want_panel.items()) and all(
+        v.get("spill_stores", 1) == 0 and v.get("spill_loads", 1) == 0 for v in checked12),
+          kernels=len(checked12),
+          registers="/".join(str(v.get("registers")) for v in checked12))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -539,9 +511,21 @@ def main() -> int:
     print(f"[INFO] k1_uniform_quant16 differing_pivots={ndiff} of {r}", flush=True)
     ms = event_ms(lambda: strip_panel_pivots(slab0, 0, pos0, torch.bfloat16, 0, r))
     pms = event_ms(lambda: strip_panel_pivots_plain(slab0, 0, pos0, torch.bfloat16, 0, r), 2)
+    # the device times (CUDA graph replays) beside the wrapper's, bf16 and
+    # fp32 panels; and what one grid barrier of one block an SM costs alone
+    # (cooperative groups' grid.sync(), kernel 1's arrival counter, the
+    # counter with kernel 1's read of the G keys behind it): r of them a panel
+    dms1 = graph_ms(lambda: strip_panel_pivots(slab0, 0, pos0, torch.bfloat16, 0, r))
+    dms1f = graph_ms(lambda: strip_panel_pivots(slab0, 0, pos0, torch.float32, 0, r))
+    bar_iters = 2000
+    bar_us = {kind: 1e3 * event_ms(lambda: barrier_probe(k, bar_iters), 3) / bar_iters
+              for k, kind in enumerate(("grid_sync", "counter", "counter_and_keys"))}
+    print(f"[INFO] k1 grid barrier alone, us: {json.dumps(bar_us)}; kernel 1 device "
+          f"{dms1:.4f} ms bf16 panel, {dms1f:.4f} ms fp32 panel ({r} barriers)", flush=True)
     # panel read once (fp32), positions read and written, pivots written
     record("strip_pivots", *errs(pairs1), ms, pms,
-           bound(4 * n * r + 8 * n + 8 * r, panel_ops(n, 0, r)), None)
+           bound(4 * n * r + 8 * n + 8 * r, panel_ops(n, 0, r)), None,
+           device_ms=dms1, fp32_panel_device_ms=dms1f, barrier_us=bar_us)
 
     # #2 and #3 on panels of the uniform slab, where L21 is O(1), so a
     # missing L11^{-1} or update GEMM moves the result by O(1), and on the
@@ -630,9 +614,13 @@ def main() -> int:
                   info_kernel=int(iz_k), info_plain=int(iz_p))
             del slab_z
     # k2 at jj0 = 0: r pivot rows read, the row block and U11^-1 written;
-    # LU 2r^3/3, L^-1 and U^-1 r^3/3 each, U12 2 r^2 (bc - r)
+    # LU 2r^3/3, L^-1 and U^-1 r^3/3 each, U12 2 r^2 (bc - r); its device
+    # time (CUDA graph replays) beside the wrapper's
+    glist_u = strip_panel_pivots(uni, 0, pos0, torch.bfloat16, 0, r)[2]
+    dms2 = graph_ms(lambda: rowblock_assemble(uni, glist_u, 0))
     record("rowblock", abs2, err2, ms2, pms2,
-           bound(4 * (2 * r * bc + r * r), 4 * r ** 3 / 3 + 2 * r * r * (bc - r)), None)
+           bound(4 * (2 * r * bc + r * r), 4 * r ** 3 / 3 + 2 * r * r * (bc - r)), None,
+           device_ms=dms2)
     # k3 at jj0 = 0 (gemm_bf16): the rows below read and written; L21 in
     # fp32 (2 m r^2), the update on bf16 operands (2 m r (bc - r))
     m3 = n - r
@@ -882,8 +870,32 @@ def main() -> int:
                   piv_eq(got, ref) and piv_eq(got, f32))
     ms = event_ms(lambda: strip_panel_pivots(slab0_b, 0, pos0, BF, 0, r))
     pms = event_ms(lambda: strip_panel_pivots_plain(slab0_b, 0, pos0, BF, 0, r), 2)
+    # #1 on the largest slices it takes: m = 65536 (phase 5b's slab, timed
+    # too) and m = 73728, the deferred exchange's pre-extended n = 65536 slab
+    # with S = 8 (phase 7b; three rows a thread), with dead rows: exact
+    big_ms = {}
+    for mb_ in (BIG_N, BIG_N + DEFER_S * bc):
+        gen = torch.Generator(device=dev).manual_seed(mb_)
+        big = ((torch.rand((mb_, 2 * r), generator=gen, device=dev) * 2 - 1) * 4).to(BF)
+        posb = torch.arange(mb_, dtype=torch.int32, device=dev)
+        posb[torch.randperm(mb_, generator=torch.Generator().manual_seed(3))[:mb_ // 10]
+             .to(dev)] = SENT
+        for q16 in (True, False):
+            got = strip_panel_pivots(big, 64, posb, BF, r, r, quant16=q16)
+            ref = strip_panel_pivots_plain(big, 64, posb, BF, r, r, quant16=q16)
+            phase(f"k1_bf16_m{mb_}_{'quant16' if q16 else 'exact'}", piv_eq(got, ref),
+                  rows_a_block=-(-mb_ // torch.cuda.get_device_properties(dev)
+                                 .multi_processor_count))
+        if mb_ == BIG_N:
+            big_ms = {"ms": event_ms(lambda: strip_panel_pivots(big, 0, posb, BF, 0, r)),
+                      "device_ms": graph_ms(lambda: strip_panel_pivots(big, 0, posb, BF, 0, r))}
+        del big, posb
+    big_ms["bound_ms"] = bound(2 * BIG_N * r + 8 * BIG_N + 8 * r, panel_ops(BIG_N, 0, r))[0]
+    print(f"[INFO] k1 bf16 m={BIG_N}: {json.dumps(big_ms)}", flush=True)
+    dms1b = graph_ms(lambda: strip_panel_pivots(slab0_b, 0, pos0, BF, 0, r))
     record_bf16("strip_pivots", errs(pairs1b)[0], ms, pms,
-                bound(2 * n * r + 8 * n + 8 * r, panel_ops(n, 0, r)), None)
+                bound(2 * n * r + 8 * n + 8 * r, panel_ops(n, 0, r)), None,
+                device_ms=dms1b, m65536_ms=big_ms["ms"], m65536_device_ms=big_ms["device_ms"])
 
     # #2 and #12 on the bf16 slabs.  #12's passes are each held against
     # their plain version on the same inputs: the update pass is fed the
@@ -995,8 +1007,10 @@ def main() -> int:
     del cases, slab
     # k2 bf16 at jj0 = 0: r pivot rows read, row block and U11^-1 written in
     # bf16; the diagonal in fp32, U12 on bf16 operands
+    glist_ub = strip_panel_pivots(uni_b, 0, pos0, BF, 0, r)[2]
     record_bf16("rowblock", abs2b, ms2, pms2,
-                bound(2 * (2 * r * bc + r * r), 4 * r ** 3 / 3, 2 * r * r * (bc - r)), None)
+                bound(2 * (2 * r * bc + r * r), 4 * r ** 3 / 3, 2 * r * r * (bc - r)), None,
+                device_ms=graph_ms(lambda: rowblock_assemble(uni_b, glist_ub, 0)))
     # k12 at jj0 = 0, m = n: the L21 pass reads the panel and writes it and
     # the side buffer (bf16), 2 m r^2 bf16-operand operations; the update
     # pass reads and writes the m x (bc - r) columns, reads L21 and U12

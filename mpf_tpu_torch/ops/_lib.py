@@ -94,8 +94,9 @@ copies = {"gemm_operand": 0}
 P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argument types of each C entry point (pointers and the stream as c_void_p)
 _SIGS = {
-    "mpf_strip_pivots": [I, I, P, L, I, I, P, P, P, I, I, I, P, P, I, P],
-    "mpf_strip_record_bytes": [],
+    "mpf_strip_pivots": [I, I, P, L, I, I, P, P, P, I, I, I, P, I, P],
+    "mpf_strip_scratch_bytes": [I],
+    "mpf_strip_barrier_probe": [I, I, P, I, P],
     "mpf_rowblock": [I, I, P, L, P, I, P, P, P, P, I, P],
     "mpf_panel_update": [I, I, I, P, L, I, P, I, P, P, P, I, P],
     "mpf_l21_trim": [I, I, P, L, I, P, I, P, P, L, P],
@@ -126,7 +127,8 @@ _SIGS = {
     "mpf_probe_overlap": [I, I, I, P, P, P, I, P, I, L, I, I, P, P, P],
     "mpf_error_string": [I],
 }
-_RESTYPES = {"mpf_error_string": ctypes.c_char_p, "mpf_hgetf2_work_bytes": L}
+_RESTYPES = {"mpf_error_string": ctypes.c_char_p, "mpf_hgetf2_work_bytes": L,
+             "mpf_strip_scratch_bytes": L}
 
 _lib = None
 _lock = threading.Lock()

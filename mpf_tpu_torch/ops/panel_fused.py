@@ -31,6 +31,8 @@ output to their input.  The TPU tiling helpers (`_trailing_segments`, the
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from mpf_tpu_torch.ops import _lib
@@ -97,6 +99,19 @@ def rowblock_assemble_plain(slab, glist, jj0):
     return rowblock.to(w), y.to(w), info
 
 
+def _scratch(device: torch.device) -> torch.Tensor:
+    """Kernel 2's fp32 buffer on ``device`` for L^{-1} and U (r <= 128)
+    for launches from the current stream, made once for each stream: its
+    elimination launch writes them, its second launch reads them, in
+    stream order, and launches on two streams never share it."""
+    return _stream_scratch(device, torch.cuda.current_stream().cuda_stream)
+
+
+@functools.lru_cache(maxsize=16)
+def _stream_scratch(device: torch.device, stream: int) -> torch.Tensor:
+    return torch.empty(2 * 128 * 128, dtype=torch.float32, device=device)
+
+
 def rowblock_assemble(slab, glist, jj0: int):
     """Gather the r pivot rows ``glist`` of the fp32 or bf16 ``slab``
     (m, bc), refactor the (r, r) diagonal block at column ``jj0`` without
@@ -109,7 +124,9 @@ def rowblock_assemble(slab, glist, jj0: int):
     * ``uinv`` (r, r) — U11^{-1};
     * ``info`` — int32 scalar tensor, 1-based first zero pivot, 0 if clean.
 
-    CPU tensors take the plain version; CUDA tensors launch kernel 2."""
+    CPU tensors take the plain version; CUDA tensors launch kernel 2 (two
+    launches on the current stream, with that stream's scratch,
+    :func:`_scratch`)."""
     if not _lib.on_cuda(slab, glist):
         return rowblock_assemble_plain(slab, glist, jj0)
     _row_major(slab, "rowblock_assemble: slab")
@@ -119,11 +136,10 @@ def rowblock_assemble(slab, glist, jj0: int):
     dev = slab.device
     rowblock = torch.empty((r, bc), dtype=slab.dtype, device=dev)
     uinv = torch.empty((r, r), dtype=slab.dtype, device=dev)
-    linv = torch.empty((r, r), dtype=torch.float32, device=dev)   # scratch
     info = torch.empty((), dtype=torch.int32, device=dev)
     _lib.call("mpf_rowblock", r, bc, slab.data_ptr(), slab.stride(0),
               glist.data_ptr(), int(jj0), rowblock.data_ptr(), uinv.data_ptr(),
-              linv.data_ptr(), info.data_ptr(), int(slab.dtype == torch.bfloat16))
+              _scratch(dev).data_ptr(), info.data_ptr(), int(slab.dtype == torch.bfloat16))
     _lib.counted_launch("rowblock")
     return rowblock, uinv, info
 

@@ -22,6 +22,8 @@ The TPU-only knobs ``MPF_GM``, ``MPF_A1_V2``, ``MPF_A1_STUB`` and
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from mpf_tpu_torch.ops import _lib
@@ -136,7 +138,8 @@ def strip_panel_pivots(slab, off: int, pos, panel_dtype=None, jj0: int = 0,
     ``2**31 - 1`` are dead: never searched, swapped or eliminated.
 
     CPU tensors take the plain version; CUDA tensors launch kernel 1 (one
-    cooperative launch)."""
+    cooperative launch, r grid barriers) on the current stream, with that
+    stream's scratch (:func:`_scratch`)."""
     m, w = slab.shape
     r = w if r is None else r
     panel_dtype = panel_dtype or slab.dtype
@@ -155,13 +158,37 @@ def strip_panel_pivots(slab, off: int, pos, panel_dtype=None, jj0: int = 0,
     pos2 = pos.to(torch.int32).clone()
     piv = torch.empty(r, dtype=torch.int32, device=dev)
     glist = torch.empty(r, dtype=torch.int32, device=dev)
-    gmax = torch.cuda.get_device_properties(dev).multi_processor_count
-    rec_bytes = _lib.lib().mpf_strip_record_bytes()
-    rec = torch.empty(r * gmax * rec_bytes, dtype=torch.uint8, device=dev)
-    pinfo = torch.empty(r * (r + W), dtype=torch.float32, device=dev)
+    gmax, scratch = _scratch(dev)
     _lib.call("mpf_strip_pivots", m, r, slab.data_ptr(), slab.stride(0), int(jj0),
               int(off), pos2.data_ptr(), piv.data_ptr(), glist.data_ptr(), int(slab_bf16),
               int(panel_dtype == torch.bfloat16), int(bool(quant16)),
-              rec.data_ptr(), pinfo.data_ptr(), gmax)
+              scratch.data_ptr(), gmax)
     _lib.counted_launch("strip_pivots")
     return piv, pos2, glist
+
+
+def _scratch(device: torch.device):
+    """Kernel 1's scratch for launches on ``device`` from the current
+    stream: the grid's upper bound (the SM count) and one zeroed buffer
+    holding the grid barrier's counters (each launch leaves them at 0) and
+    a key and a candidate record per column (r <= 128) and block.  Made
+    once for each stream, so launches on two streams never share it."""
+    return _stream_scratch(device, torch.cuda.current_stream().cuda_stream)
+
+
+@functools.lru_cache(maxsize=16)
+def _stream_scratch(device: torch.device, stream: int):
+    gmax = torch.cuda.get_device_properties(device).multi_processor_count
+    nbytes = _lib.lib().mpf_strip_scratch_bytes(gmax)
+    return gmax, torch.zeros(nbytes, dtype=torch.uint8, device=device)
+
+
+def barrier_probe(kind: int, iters: int, device=None) -> None:
+    """Launch kernel 1's grid barrier probe on ``device`` (default: the
+    current CUDA device): ``iters`` grid barriers across one block an SM,
+    ``kind`` 0 cooperative groups' ``grid.sync()``, 1 kernel 1's arrival
+    counter, 2 the counter with kernel 1's read of the G keys behind it.
+    Asynchronous; time it with CUDA events (no pivot search, no count)."""
+    dev = torch.device("cuda", torch.cuda.current_device()) if device is None else device
+    gmax, scratch = _scratch(dev)
+    _lib.call("mpf_strip_barrier_probe", int(kind), int(iters), scratch.data_ptr(), gmax)

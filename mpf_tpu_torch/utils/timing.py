@@ -48,3 +48,49 @@ def cuda_time(fn: Callable, *args, warmup: int = 1, iters: int = 3,
         times.append(start.elapsed_time(end) / 1e3)
     srt = sorted(times)
     return srt[len(srt) // 2], times, out
+
+
+def event_ms(fn, reps: int = 5) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` runs back to back,
+    between two CUDA events (the host's issue time where that is longer)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("event_ms needs a CUDA device")
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds of one ``fn()``: ``reps`` calls captured in one
+    CUDA graph, the graph replayed 5 times between CUDA events.  For
+    launches shorter than the host's time to issue them, where event_ms
+    times the host: the replay has no host work between the kernels."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("graph_ms needs a CUDA device")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        g.replay()
+    end.record()
+    end.synchronize()
+    del g
+    return start.elapsed_time(end) / (5 * reps)

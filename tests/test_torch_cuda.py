@@ -36,7 +36,7 @@ from mpf_tpu_torch.ops.panel_strip import SENT, strip_panel_pivots, strip_panel_
 from mpf_tpu_torch.precision import cast_to_panel
 from mpf_tpu_torch.utils import matgen
 from mpf_tpu_torch.utils.oracle import (
-    check_factorization_device, sum_slack, within_bf16_ulp, within_ulp)
+    check_factorization_device, sum_slack, tri_inv_slack, within_bf16_ulp, within_ulp)
 
 pytestmark = pytest.mark.gpu
 
@@ -1092,3 +1092,165 @@ def test_probe_wrappers_never_take_the_plain_version(cuda):
     torch.cuda.synchronize()
     assert {k: _lib.launches[k] for k in _PROBES} == {k: 1 for k in _PROBES}
     assert not any(_lib.plain_calls.values())
+
+
+# ------------------------------------------- kernels 1 and 2, the redesign
+
+def _dead_and_shuffled(m, seed, dead_share, dev):
+    """Positions: a permutation of 0..m-1 with ``dead_share`` of the rows
+    dead (SENT)."""
+    g = torch.Generator().manual_seed(seed)
+    pos = torch.randperm(m, generator=g).to(torch.int32)
+    pos[torch.randperm(m, generator=g)[:int(dead_share * m)]] = SENT
+    return pos.to(dev)
+
+
+@pytest.mark.parametrize("r", [8, 64, 128])
+@pytest.mark.parametrize("pdt,q16", [(BF, True), (BF, False), (torch.float32, False)],
+                         ids=["bf16-quant16", "bf16-exact", "fp32-exact"])
+def test_strip_pivots_redesign_exact_m16384(cuda, pdt, q16, r):
+    """Kernel 1 at m = 16384 (one block an SM, 125 rows each): piv, pos
+    and glist exact against the plain version, on the uniform slab from
+    the identity positions and with 10% dead rows, shuffled positions and
+    off > 0; the bf16 panel also from a bf16 slab."""
+    m = 16384
+    slab = torch.from_numpy(matgen.random_dense(m, seed=11)[:, :512].copy()).to(cuda)
+    cases = [(torch.arange(m, dtype=torch.int32, device=cuda), 0, 0),
+             (_dead_and_shuffled(m, 12, 0.1, cuda), 300, 128)]
+    for pos, off, jj0 in cases:
+        slabs = [slab, slab.to(BF)] if pdt == BF else [slab]
+        for s in slabs:
+            got = strip_panel_pivots(s, off, pos, pdt, jj0=jj0, r=r, quant16=q16)
+            ref = strip_panel_pivots_plain(s, off, pos, pdt, jj0=jj0, r=r, quant16=q16)
+            for x, y in zip(got, ref):
+                assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("q16", [True, False], ids=["quant16", "exact"])
+def test_strip_pivots_redesign_largest_slice(cuda, q16):
+    """Kernel 1 at m = 73728 with a bf16 panel (559 rows a block, three a
+    thread: the deferred exchange's pre-extended n = 65536 slab with S = 8),
+    from fp32 and bf16 slabs, with dead rows: exact against the plain
+    version."""
+    m = 73728
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    slab = torch.rand((m, 256), generator=gen, device=cuda) * 2 - 1
+    pos = _dead_and_shuffled(m, 14, 0.1, cuda)
+    for s in (slab, slab.to(BF)):
+        got = strip_panel_pivots(s, 64, pos, BF, jj0=128, r=128, quant16=q16)
+        ref = strip_panel_pivots_plain(s, 64, pos, BF, jj0=128, r=128, quant16=q16)
+        for x, y in zip(got, ref):
+            assert torch.equal(x, y)
+
+
+def test_strip_pivots_back_to_back_launches(cuda):
+    """Kernel 1's grid barrier counter is reset by each launch: many
+    launches in a row on one stream, with grids of different sizes, give
+    the plain version's pivots every time."""
+    for m in (16384, 1000, 16384, 200, 5000):
+        slab = torch.from_numpy(matgen.random_dense(m, seed=m)[:, :64].copy()).to(cuda)
+        pos = torch.arange(m, dtype=torch.int32, device=cuda)
+        ref = strip_panel_pivots_plain(slab, 0, pos, BF, r=64)
+        for _ in range(3):
+            got = strip_panel_pivots(slab, 0, pos, BF, r=64)
+            assert all(torch.equal(x, y) for x, y in zip(got, ref))
+
+
+@pytest.mark.parametrize("r", [8, 48, 128])
+@pytest.mark.parametrize("dt", [torch.float32, BF], ids=["fp32", "bf16"])
+def test_rowblock_redesign_lu_bitwise(cuda, dt, r):
+    """Kernel 2: the diagonal LU bitwise against the plain version and
+    against kernel 8's LU of the same gathered block (fp32, rounded to the
+    slab's dtype); U^{-1} and U12 within 1e-5 of their largest entry
+    (fp32), or one bf16 ulp plus the slack of sums taken in another order
+    (bf16: the kernel's chains against the plain version's cuBLAS sums,
+    the criterion of `chip_smoke.py`'s k2_bf16 phases); the gathered L
+    part exact; info exact, also with an exactly-zero second pivot."""
+    m, bc, jj0 = 4096, 512, 128
+    slab = torch.from_numpy(matgen.random_dense(m, seed=r)[:, :bc].copy()).to(cuda).to(dt)
+    pos = torch.arange(m, dtype=torch.int32, device=cuda)
+    if r % 8 == 0:
+        glist = strip_panel_pivots(slab, jj0, pos, BF, jj0=jj0, r=r)[2]
+    else:
+        glist = torch.arange(jj0, jj0 + r, dtype=torch.int32, device=cuda)
+    k = rowblock_assemble(slab, glist, jj0)
+    p = rowblock_assemble_plain(slab, glist, jj0)
+    c1 = jj0 + r
+    assert torch.equal(k[0][:, :c1], p[0][:, :c1])
+    lu8 = getf2_npv_inv_block(slab[glist.long(), jj0:c1].float().contiguous())[0]
+    assert torch.equal(k[0][:, jj0:c1], lu8.to(dt))
+    if dt == torch.float32:
+        for x, y in ((k[0][:, c1:], p[0][:, c1:]), (k[1], p[1])):
+            assert float((x - y).abs().max() / y.abs().max()) <= 1e-5
+    else:
+        staged = slab[glist.long()].float()
+        lu_f, linv_f, uinv_f, _ = getf2_npv_inv_plain(staged[:, jj0:c1])
+        assert within_bf16_ulp(k[0][:, c1:], p[0][:, c1:],
+                               sum_slack(staged.new_zeros(()), linv_f.to(BF), staged[:, c1:]))
+        assert within_bf16_ulp(k[1], p[1], tri_inv_slack(uinv_f, torch.triu(lu_f)))
+    assert int(k[2]) == int(p[2]) == 0
+    slab[glist[1].long(), jj0:c1] = slab[glist[0].long(), jj0:c1]
+    kz, pz = rowblock_assemble(slab, glist, jj0), rowblock_assemble_plain(slab, glist, jj0)
+    assert int(kz[2]) == int(pz[2]) == (2 if r > 1 else 0)
+    assert torch.equal(kz[0][:, :c1], pz[0][:, :c1])
+
+
+def _earlier_rows_a_block(r, tsize):
+    """The most rows a block of kernel 1 has always taken for a panel of r
+    columns of ``tsize``-byte entries on the H100: rpb (r tsize + 68)
+    bytes of dynamic shared memory beside 9,772 static bytes, under the
+    232,448-byte opt-in limit."""
+    return (232448 - 9776) // (r * tsize + 68)
+
+
+@pytest.mark.parametrize("r,pdt,sdt", [(64, BF, BF), (64, BF, torch.float32), (32, BF, BF),
+                                       (8, BF, BF), (8, torch.float32, torch.float32),
+                                       (16, torch.float32, torch.float32)],
+                         ids=["r64-bf16", "r64-bf16-fp32slab", "r32-bf16", "r8-bf16",
+                              "r8-fp32", "r16-fp32"])
+def test_strip_pivots_largest_accepted_rows(cuda, r, pdt, sdt):
+    """Kernel 1 at the largest m its shared-memory layout has always
+    accepted for small panels (one block an SM, more than three rows a
+    thread: the rows past the registers' keep their strips in shared
+    memory), with dead rows, shuffled positions and off > 0, quant16 and
+    exact: piv, pos and glist exact against the plain version."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    m = sms * _earlier_rows_a_block(r, 2 if pdt == BF else 4)
+    gen = torch.Generator(device=cuda).manual_seed(r)
+    slab = ((torch.rand((m, 2 * r), generator=gen, device=cuda) * 2 - 1) * 4).to(sdt)
+    pos = _dead_and_shuffled(m, r + 1, 0.1, cuda)
+    for q16 in ((True, False) if pdt == BF else (False,)):
+        got = strip_panel_pivots(slab, 64, pos, pdt, jj0=r, r=r, quant16=q16)
+        ref = strip_panel_pivots_plain(slab, 64, pos, pdt, jj0=r, r=r, quant16=q16)
+        for x, y in zip(got, ref):
+            assert torch.equal(x, y)
+
+
+def test_panel_kernels_on_two_streams(cuda):
+    """Kernels 1 and 2 launched on two streams at once, over and over: each
+    stream has its own scratch (grid barrier counter, keys and records;
+    L^{-1} and U), so kernel 1's pivots equal the plain version's and
+    kernel 2's outputs equal its run alone bit for bit, its diagonal LU
+    also the plain version's."""
+    m, r = 16384, 128
+    slabs = [torch.from_numpy(matgen.random_dense(m, seed=s)[:, :512].copy()).to(cuda)
+             for s in (21, 22)]
+    pos = torch.arange(m, dtype=torch.int32, device=cuda)
+    k1_ref = [strip_panel_pivots_plain(s, 0, pos, BF, r=r) for s in slabs]
+    k2_alone = [rowblock_assemble(s, ref[2], 0) for s, ref in zip(slabs, k1_ref)]
+    k2_plain = [rowblock_assemble_plain(s, ref[2], 0) for s, ref in zip(slabs, k1_ref)]
+    streams = [torch.cuda.Stream() for _ in slabs]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(8):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                k1 = strip_panel_pivots(slabs[i], 0, pos, BF, r=r)
+                outs[i].append((k1, rowblock_assemble(slabs[i], k1[2], 0)))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for k1, k2 in outs[i]:
+            assert all(torch.equal(x, y) for x, y in zip(k1, k1_ref[i]))
+            assert all(torch.equal(x, y) for x, y in zip(k2, k2_alone[i]))
+            assert torch.equal(k2[0][:, :r], k2_plain[i][0][:, :r])

@@ -87,6 +87,21 @@ def test_timing_helpers():
             profile_factorization(64)
 
 
+def test_panel_bench_needs_a_card():
+    """Kernels 1 and 2's timer (``utils/panel_bench.py``) and the device
+    timers it shares with ``chip_smoke.py`` (``event_ms``, ``graph_ms``)
+    measure nothing without a card: they raise instead of timing the plain
+    versions."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the timer runs there")
+    from mpf_tpu_torch.utils.panel_bench import panel_times
+
+    for timer in (panel_times, lambda: TT.event_ms(lambda: None),
+                  lambda: TT.graph_ms(lambda: None)):
+        with pytest.raises(RuntimeError):
+            timer()
+
+
 def test_import_loads_no_jax():
     code = ("import sys, mpf_tpu_torch, mpf_tpu_torch.convert, mpf_tpu_torch.utils.oracle, "
             "mpf_tpu_torch.utils.matgen, mpf_tpu_torch.utils.timing; "
