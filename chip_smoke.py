@@ -8,7 +8,9 @@ Phases, one line each:
      FFMA routine's four kernels (kernels 6 and 13, 16- and 4-byte
      copies), the L21 pass's four (kernels 3 and 12: fp32 and bf16, TMA
      and per-thread copies) and kernel 5's two printed, and no spill
-     required (the Hopper routine's kernels printed too);
+     required (the Hopper routine's kernels printed too); the same for
+     the panel kernels: kernel 1's twelve instances, kernel 2's two
+     launches in both dtypes, kernel 7's ten and kernel 8's three;
   2. kernels 1-6 of the fused path against their plain PyTorch versions on
      the card, at the fused path's shapes (n = 16384, r = 128, block 1024,
      MPF_BF16); kernel 6's bf16-operand instance (the Hopper TMA + wgmma
@@ -23,7 +25,11 @@ Phases, one line each:
      of the 67 TFLOP/s fp32 peak printed beside addmm_ and the bound;
   2b. kernels 7, 8, 8b and 9 of the masked path against their plain
      versions at the masked path's shapes (m = 16384, r = 128; the slab
-     (16384, 1024) and the whole matrix for the row exchange);
+     (16384, 1024) and the whole matrix for the row exchange); kernel 7
+     exact, kernel 8's LU and L^-1 bitwise at r = 128; kernels 7, 8 and 8b
+     also timed on the device alone (CUDA graph replays) beside their
+     wrappers, kernel 8b beside lu_factor_ex, and kernel 7 beside its
+     chain floor (r grid barriers as phase 2 timed one alone);
   2c. the bf16-storage instances (ALL_BF16) against their plain versions at
      the fused path's shapes: kernels 1, 4 and 5 exact (kernel 5, here and
      in phase 2, and kernel 12's two passes also timed on the device alone
@@ -356,16 +362,21 @@ def main() -> int:
           kernels=len(checked),
           registers="/".join(str(v.get("registers")) for p in want_regs
                              for _, v in sorted(regs[p].items())))
-    # kernels 1 and 2 (twelve instances of kernel 1: slab and panel dtypes,
-    # one to three rows a thread, and three with more rows in shared memory;
-    # both launches of kernel 2, fp32 and bf16): registers, and no spill
-    want_panel = {"strip_kernel": 12, "diag_kernel": 2, "tail_kernel": 2}
+    # the panel kernels (twelve instances of kernel 1: slab and panel
+    # dtypes, one to three rows a thread, and three with more rows in shared
+    # memory; both launches of kernel 2, fp32 and bf16; kernel 7's ten: five
+    # (panel, input) dtype pairs, with and without rows past the registers;
+    # kernel 8's register-tile instances: without the inverses, and with
+    # them and the back substitution):
+    # registers, and no spill
+    want_panel = {"strip_kernel": 12, "diag_kernel": 2, "tail_kernel": 2,
+                  "hgetf2_kernel": 10, "npv_tile_kernel": 2}
     regs12 = {pat: _lib.ptxas_report(pat) for pat in want_panel}
     for pat, rep in regs12.items():
         for name, v in sorted(rep.items()):
             print(f"[INFO] ptxas {name}: {json.dumps(v)}", flush=True)
     checked12 = [v for rep in regs12.values() for v in rep.values()]
-    phase("k1_k2_no_spill", all(len(regs12[p]) == k for p, k in want_panel.items()) and all(
+    phase("panel_no_spill", all(len(regs12[p]) == k for p, k in want_panel.items()) and all(
         v.get("spill_stores", 1) == 0 and v.get("spill_loads", 1) == 0 for v in checked12),
           kernels=len(checked12),
           registers="/".join(str(v.get("registers")) for v in checked12))
@@ -780,22 +791,31 @@ def main() -> int:
     p16 = cast_to_panel(uni[:, :r], T.MPF_FP16).contiguous()
     ms7 = event_ms(lambda: hgetf2_panel_swaps(p16, 0, None, panel_dtype=torch.float16))
     pms7 = event_ms(lambda: hgetf2_panel_plain(p16, 0, None, panel_dtype=torch.float16), 2)
+    dms7 = graph_ms(lambda: hgetf2_panel_swaps(p16, 0, None, panel_dtype=torch.float16))
+    # the chain floor: one grid barrier a column, as phase 2 timed it alone
+    floor7 = r * bar_us["counter"] / 1e3
+    print(f"[INFO] k7 device {dms7:.4f} ms ({ms7:.4f} ms wrapper), chain floor "
+          f"{floor7:.4f} ms ({r} barriers of {bar_us['counter']:.3f} us)", flush=True)
     # fp16 panel read once, prev read, perm and the composed map written
     record("hgetf2", *errs(pairs7), ms7, pms7,
-           bound(2 * n * r + 12 * n + 12 * r, panel_ops(n, 0, r)), None)
+           bound(2 * n * r + 12 * n + 12 * r, panel_ops(n, 0, r)), None,
+           device_ms=dms7)
 
     # #8 / #8b on the diagonal blocks of the first panel (the masked path
-    # factors the pivoted slab's block), r = 128 in shared memory and r = 256
-    # in global memory; each output against the plain version relative to
-    # its own largest entry; info exact, including a forced zero pivot
+    # factors the pivoted slab's block), r = 128 (kernel 2's register tile)
+    # and r = 256 (the earlier design, global memory); each output against
+    # the plain version relative to its own largest entry, and at r <= 128
+    # LU and L^-1 bitwise; info exact, including a forced zero pivot
     def npv_checks(tag, blk):
         k8, p8 = getf2_npv_inv_block(blk), getf2_npv_inv_plain(blk)
         e8 = [rel(x, y) for x, y in zip(k8[:3], p8[:3])]
         lu8b, info8b = getf2_npv_block(blk)
+        exact = torch.equal(k8[0], p8[0]) and torch.equal(k8[1], p8[1])
         ok = (max(e8) <= 1e-5 and int(k8[3]) == int(p8[3]) == int(info8b)
-              and rel(lu8b, p8[0]) <= 1e-5)
+              and rel(lu8b, p8[0]) <= 1e-5 and (exact or blk.shape[0] > 128))
         phase(f"k8_{tag}", ok, rel_lu=f"{e8[0]:.3e}", rel_linv=f"{e8[1]:.3e}",
-              rel_uinv=f"{e8[2]:.3e}", info=int(k8[3]), lu_8b_exact=torch.equal(lu8b, p8[0]))
+              rel_uinv=f"{e8[2]:.3e}", info=int(k8[3]), lu_linv_exact=exact,
+              lu_8b_exact=torch.equal(lu8b, p8[0]))
         return list(zip(k8[:3], p8[:3]))
     pairs8 = []
     for corpus, full in (("hpl", slab0), ("uniform", uni)):
@@ -815,10 +835,15 @@ def main() -> int:
     ms8b = event_ms(lambda: getf2_npv_block(blk128))
     pms8b = event_ms(lambda: getf2_npv_inv_plain(blk128, False), 2)
     lib8b = library(lambda: torch.linalg.lu_factor_ex(blk128, pivot=False))
+    dms8 = graph_ms(lambda: getf2_npv_inv_block(blk128))
+    dms8b = graph_ms(lambda: getf2_npv_block(blk128))
+    print(f"[INFO] k8 device {dms8:.4f} ms ({ms8:.4f} ms wrapper); k8b device "
+          f"{dms8b:.4f} ms ({ms8b:.4f} ms wrapper; lu_factor_ex {lib8b} ms)", flush=True)
     record("npv_inv", *errs(pairs8), ms8, pms8,
-           bound(16 * r * r, 4 * r ** 3 / 3), None)
+           bound(16 * r * r, 4 * r ** 3 / 3), None, device_ms=dms8)
     lu_pairs = [pr for i, pr in enumerate(pairs8) if i % 3 == 0]
-    record("npv", *errs(lu_pairs), ms8b, pms8b, bound(8 * r * r, 2 * r ** 3 / 3), lib8b)
+    record("npv", *errs(lu_pairs), ms8b, pms8b, bound(8 * r * r, 2 * r ** 3 / 3), lib8b,
+           device_ms=dms8b)
 
     # #9 on the slab view (16384, 1024) at block column 1024 with the 2r rows
     # of a panel, and on the whole matrix with the 2 bc rows of a block

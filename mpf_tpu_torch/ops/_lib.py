@@ -104,8 +104,9 @@ _SIGS = {
     "mpf_rows_exchange": [I, I, P, L, I, P, P, P, I, P],
     "mpf_tri_inv": [I, I, P, L, P, P, P, L, I, P],
     "mpf_trailing_sub": [I, I, I, I, P, L, P, L, P, I, L, P],
-    "mpf_hgetf2_work_bytes": [I, I, I, I],
-    "mpf_hgetf2": [I, I, P, L, I, I, I, P, P, P, P, P, P, I, P],
+    "mpf_hgetf2_scratch_bytes": [I, I],
+    "mpf_hgetf2_panel_bytes": [I, I, I, I],
+    "mpf_hgetf2": [I, I, P, L, I, I, I, P, P, P, P, P, P, P, I, P],
     "mpf_npv": [I, P, L, P, P, P, P, I, P],
     "mpf_laswp": [I, I, P, L, P, P, P, I, P],
     "mpf_rows_gather": [I, I, P, L, P, P, I, P],
@@ -127,7 +128,8 @@ _SIGS = {
     "mpf_probe_overlap": [I, I, I, P, P, P, I, P, I, L, I, I, P, P, P],
     "mpf_error_string": [I],
 }
-_RESTYPES = {"mpf_error_string": ctypes.c_char_p, "mpf_hgetf2_work_bytes": L,
+_RESTYPES = {"mpf_error_string": ctypes.c_char_p, "mpf_hgetf2_scratch_bytes": L,
+             "mpf_hgetf2_panel_bytes": L,
              "mpf_strip_scratch_bytes": L}
 
 _lib = None
@@ -307,13 +309,28 @@ def sub_mul(b: torch.Tensor, m: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
     * fp32: one fused multiply-add (:func:`fms`);
     * bf16: the product rounded to bf16, then the difference rounded to bf16;
-    * fp16: the exact fp32 product, one fp32 difference, rounded to fp16."""
+    * fp16: the exact result rounded once to fp16 (:func:`f16_rn`; the
+      product of two fp16 values is exact in fp32, but rounding the fp32
+      difference again to fp16 can land on an fp16 midpoint)."""
     if b.dtype == torch.bfloat16:
         prod = (m.float() * u.float()).to(torch.bfloat16).float()
         return (b.float() - prod).to(torch.bfloat16)
     if b.dtype == torch.float16:
-        return (b.float() - m.float() * u.float()).to(torch.float16)
+        return f16_rn(b.double() - m.double() * u.double())
     return fms(b, m, u).to(b.dtype)
+
+
+def f16_rn(z: torch.Tensor) -> torch.Tensor:
+    """fp64 ``z`` rounded ONCE to the nearest fp16 (ties to even).  torch
+    converts fp64 to fp16 through fp32, rounding twice; rounding to odd at
+    fp32 (truncate, then set the last bit when inexact) and then to nearest
+    at fp16 rounds once, as fp32 keeps two bits more than fp16 needs.
+    Kernel 7 rounds its fp16 update the same way (csrc/hgetf2.cu)."""
+    f = z.float()
+    fd = f.double()
+    trunc = torch.where(fd.abs() > z.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+    odd = (trunc.view(torch.int32) | 1).view(torch.float32)
+    return torch.where(fd == z, f, odd).to(torch.float16)
 
 
 def check(cond: bool, msg: str) -> None:

@@ -17,7 +17,7 @@ the panel dtype; the rank-1 update ``p - m * u`` (``_lib.sub_mul``; the
 same for ``getf2_npv`` on a bf16 block) is
 
 * bf16: the product rounded to bf16, then the difference rounded to bf16;
-* fp16: the fp32 difference of the exact fp32 product, rounded to fp16;
+* fp16: the exact difference rounded once to fp16 (``_lib.f16_rn``);
 * fp32: one fused multiply-add (XLA's CPU backend contracts it).
 
 Pivot ties go to the lowest row (``torch.argmax`` returns the first

@@ -19,6 +19,8 @@ a CUDA tensor the kernel cannot take raises.  The TPU constraints
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from mpf_tpu_torch.ops import _lib
@@ -58,7 +60,8 @@ def hgetf2_panel_swaps(panel, row_offset: int, prev_perm, panel_dtype=None):
     arange(r), piv]``.
 
     CPU tensors take the plain version; CUDA tensors launch kernel 7 (one
-    cooperative launch)."""
+    cooperative launch, r grid barriers) on the current stream, with that
+    stream's scratch (:func:`_scratch`)."""
     m, r = panel.shape
     panel_dtype = panel_dtype or panel.dtype
     tensors = (panel,) if prev_perm is None else (panel, prev_perm)
@@ -73,9 +76,10 @@ def hgetf2_panel_swaps(panel, row_offset: int, prev_perm, panel_dtype=None):
         prev_perm = torch.arange(m, dtype=torch.int32, device=dev)
     prev_perm = prev_perm.to(torch.int32).contiguous()
     kind = _PANEL_KIND[panel_dtype]
-    gmax = torch.cuda.get_device_properties(dev).multi_processor_count
-    work = torch.empty(_lib.lib().mpf_hgetf2_work_bytes(m, r, kind, gmax),
-                       dtype=torch.uint8, device=dev)
+    gmax = _sm_count(dev)
+    scratch = _scratch(dev, r)
+    nbytes = _panel_bytes(m, r, kind, gmax)
+    gpanel = torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
     piv = torch.empty(r, dtype=torch.int32, device=dev)
     perm = torch.empty(m, dtype=torch.int32, device=dev)
     cperm = torch.empty(m, dtype=torch.int32, device=dev)
@@ -83,9 +87,42 @@ def hgetf2_panel_swaps(panel, row_offset: int, prev_perm, panel_dtype=None):
     _lib.call("mpf_hgetf2", m, r, panel.data_ptr(), panel.stride(0),
               int(panel.dtype == panel_dtype and panel_dtype != torch.float32), kind,
               int(row_offset), prev_perm.data_ptr(), piv.data_ptr(), perm.data_ptr(),
-              cperm.data_ptr(), srcs.data_ptr(), work.data_ptr(), gmax)
+              cperm.data_ptr(), srcs.data_ptr(), scratch.data_ptr(),
+              None if gpanel is None else gpanel.data_ptr(), gmax)
     _lib.counted_launch("hgetf2")
     return piv, perm, cperm, srcs
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def _panel_bytes(m: int, r: int, kind: int, gmax: int) -> int:
+    """Bytes of the global panel kernel 7 needs when a block's rows do not
+    fit in shared memory (0 when they do)."""
+    return _lib.lib().mpf_hgetf2_panel_bytes(m, r, kind, gmax)
+
+
+#: kernel 7's scratch by (device, stream)
+_SCRATCH: dict = {}
+
+
+def _scratch(device: torch.device, r: int) -> torch.Tensor:
+    """Kernel 7's scratch for launches of up to ``r`` columns on ``device``
+    from the current stream: one zeroed buffer holding the grid barrier's
+    counters (each launch leaves them at 0) and two key and two record
+    slots a block.  One for each stream, so launches on two streams never
+    share it; sized for r = 256 (the widest panel the driver factors) and
+    grown when a wider panel comes (the old buffer is freed in the
+    stream's order, after the launches that use it)."""
+    key = (device, torch.cuda.current_stream().cuda_stream)
+    nbytes = _lib.lib().mpf_hgetf2_scratch_bytes(max(r, 256), _sm_count(device))
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < nbytes:
+        buf = _SCRATCH[key] = torch.zeros(nbytes, dtype=torch.uint8, device=device)
+    return buf
 
 
 def hgetf2_panel(panel, row_offset: int = 0, prev_perm=None):
@@ -133,6 +170,7 @@ def getf2_npv_inv_plain(block, with_inv: bool = True):
 
 
 def _npv_launch(block, with_inv: bool):
+    """Kernel 8 (``with_inv``) or 8b on a CUDA ``block``."""
     _lib.check(block.dtype == torch.float32 and block.dim() == 2
                and block.shape[0] == block.shape[1] and block.stride(1) == 1,
                "getf2_npv: block must be a square row-major fp32 view")
@@ -153,8 +191,10 @@ def getf2_npv_inv_block(block):
     """No-pivot LU of the (r, r) fp32 ``block`` with fused triangular
     inverses: ``(lu, L^{-1}, U^{-1}, info)``, ``info`` the 1-based first
     zero pivot as an int32 scalar tensor.  CPU tensors take the plain
-    version; CUDA tensors launch kernel 8 (shared memory for r <= 128,
-    global memory beyond)."""
+    version; CUDA tensors launch kernel 8 (one launch: for r <= 128 kernel
+    2's register-tile elimination and back substitution, bitwise kernel 2's
+    outputs on the same rows; beyond, one block stepping through the block
+    in shared or global memory)."""
     if not _lib.on_cuda(block):
         return getf2_npv_inv_plain(block, True)
     return _npv_launch(block, True)
@@ -162,7 +202,8 @@ def getf2_npv_inv_block(block):
 
 def getf2_npv_block(block):
     """No-pivot LU of the (r, r) fp32 ``block``: ``(lu, info)``.  CPU
-    tensors take the plain version; CUDA tensors launch kernel 8b."""
+    tensors take the plain version; CUDA tensors launch kernel 8b (kernel
+    8's elimination, without the inverses)."""
     if not _lib.on_cuda(block):
         return getf2_npv_inv_plain(block, False)
     lu, _, _, info = _npv_launch(block, False)

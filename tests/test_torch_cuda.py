@@ -312,31 +312,54 @@ def test_factorize_on_card(cuda, policy):
 
 
 @pytest.mark.parametrize("pdt", [torch.bfloat16, torch.float32, torch.float16])
-@pytest.mark.parametrize("m,r,off", [(96, 16, 5), (1000, 12, 3), (4096, 128, 1000)])
+@pytest.mark.parametrize("m,r,off", [
+    (96, 16, 5), (1000, 12, 3), (4096, 128, 1000),
+    (16384, 128, 0), (16384, 128, 8192), (4096, 256, 100), (65536, 128, 0),
+    (200000, 8, 5), (300000, 64, 0)])
 def test_hgetf2_kernel_exact(cuda, pdt, m, r, off):
     """Kernel 7: piv, perm, composed perm and srcs exact against the plain
-    version, on the uniform panel (fp16: saturated first, as MPF_FP16)."""
-    pan = torch.from_numpy(matgen.random_dense(m, seed=m)[:, :r].copy()).to(cuda)
-    if pdt == torch.float16:
-        pan = cast_to_panel(pan, MPF_FP16).contiguous()
+    version, on the uniform panel (fp16: saturated first, as MPF_FP16) and
+    on a tie-heavy dyadic one, with a permuted prev_perm.  The shapes span
+    what the kernel takes: the masked path's m = 16384 at the first and a
+    middle panel's diagonal, r = 256 (the port routes it masked), m =
+    65536 (two rows a thread), m = 200000 at r = 8 (rows past 512 a block:
+    positions in shared memory) and m = 300000 at r = 64 (the slice in
+    global memory).  A shape the kernel refuses raises: no fallback."""
+    uni = matgen.random_dense(m, seed=m)[:, :r] if m <= 16384 else (
+        np.random.default_rng(m).random((m, r)).astype(np.float32) * 2 - 1)
+    rng = np.random.default_rng(r)
+    dy = (rng.integers(-4, 5, (m, r)) * 2.0 ** rng.integers(-2, 3, (m, r))).astype(np.float32)
+    dy[dy == 0] = 1.0
     prev = torch.randperm(m, generator=torch.Generator().manual_seed(0)).to(torch.int32).to(cuda)
-    got = hgetf2_panel_swaps(pan, off, prev, panel_dtype=pdt)
-    ref = hgetf2_panel_plain(pan, off, prev, panel_dtype=pdt)
-    for x, y in zip(got, ref):
-        assert torch.equal(x, y)
+    for a in (uni, dy):
+        pan = torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+        if pdt == torch.float16:
+            pan = cast_to_panel(pan, MPF_FP16).contiguous()
+        got = hgetf2_panel_swaps(pan, off, prev, panel_dtype=pdt)
+        ref = hgetf2_panel_plain(pan, off, prev, panel_dtype=pdt)
+        for x, y in zip(got, ref):
+            assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("r", [8, 48, 128, 256])
 def test_npv_kernels(cuda, r):
-    """Kernels 8 and 8b: LU bit-exact, inverses within 1e-5 of their largest
-    entry, info exact (including a zero pivot); r = 256 runs the
-    global-memory instance."""
+    """Kernels 8 and 8b: LU and L^{-1} bit-exact against the plain version,
+    U^{-1} within 1e-5 of its largest entry (the plain version's product
+    sums in its own order), info exact (including a zero pivot).  For r <=
+    128 (kernel 2's routines), kernel 8's LU, U^{-1} and info also bitwise
+    kernel 2's outputs on the same rows (its row block's diagonal part and
+    U^{-1}, fp32 slab); r = 256 runs the global-memory instance, its
+    L^{-1} held as U^{-1}."""
     blk = torch.from_numpy((np.random.default_rng(r).random((r, r)) + r * np.eye(r))
                            .astype(np.float32)).to(cuda)
     k, p = getf2_npv_inv_block(blk), getf2_npv_inv_plain(blk)
     assert torch.equal(k[0], p[0]) and int(k[3]) == int(p[3]) == 0
     for x, y in zip(k[1:3], p[1:3]):
         assert float((x - y).abs().max() / y.abs().max()) <= 1e-5
+    if r <= 128:
+        assert torch.equal(k[1], p[1])
+        rb, ui, info2 = rowblock_assemble(blk, torch.arange(r, dtype=torch.int32, device=cuda), 0)
+        assert torch.equal(k[0], rb) and torch.equal(k[2], ui) and int(info2) == int(k[3])
     lu, info = getf2_npv_block(blk)
     assert torch.equal(lu, p[0]) and int(info) == 0
     blk[1] = blk[0]

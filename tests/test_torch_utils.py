@@ -88,15 +88,15 @@ def test_timing_helpers():
 
 
 def test_panel_bench_needs_a_card():
-    """Kernels 1 and 2's timer (``utils/panel_bench.py``) and the device
-    timers it shares with ``chip_smoke.py`` (``event_ms``, ``graph_ms``)
-    measure nothing without a card: they raise instead of timing the plain
-    versions."""
+    """The panel kernels' timer and bits check (``utils/panel_bench.py``:
+    ``panel_times``, ``hashes``) and the device timers it shares with
+    ``chip_smoke.py`` (``event_ms``, ``graph_ms``) measure nothing without
+    a card: they raise instead of timing or hashing the plain versions."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the timer runs there")
-    from mpf_tpu_torch.utils.panel_bench import panel_times
+    from mpf_tpu_torch.utils.panel_bench import hashes, panel_times
 
-    for timer in (panel_times, lambda: TT.event_ms(lambda: None),
+    for timer in (panel_times, hashes, lambda: TT.event_ms(lambda: None),
                   lambda: TT.graph_ms(lambda: None)):
         with pytest.raises(RuntimeError):
             timer()
