@@ -1,0 +1,4 @@
+"""device_ms.n65536: :func:`benchmark_torch.readers.device_ms`, in the n = 65536
+cells (moves tflops.n65536)."""
+
+from benchmark_torch.readers import device_ms as read  # noqa: F401

@@ -1,0 +1,4 @@
+"""host_issue_ms.n65536: :func:`benchmark_torch.readers.host_issue_ms`, in the
+n = 65536 cells (moves tflops.n65536)."""
+
+from benchmark_torch.readers import host_issue_ms as read  # noqa: F401

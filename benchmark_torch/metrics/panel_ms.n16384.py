@@ -1,0 +1,4 @@
+"""panel_ms.n16384: :func:`benchmark_torch.readers.panel_ms`, in the n = 16384
+cells (moves tflops.n16384)."""
+
+from benchmark_torch.readers import panel_ms as read  # noqa: F401

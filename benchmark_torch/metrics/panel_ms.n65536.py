@@ -1,0 +1,4 @@
+"""panel_ms.n65536: :func:`benchmark_torch.readers.panel_ms`, in the n = 65536
+cells (moves tflops.n65536)."""
+
+from benchmark_torch.readers import panel_ms as read  # noqa: F401
