@@ -93,6 +93,7 @@ import torch
 
 from mpf_tpu_torch import config
 from mpf_tpu_torch.precision import PrecisionPolicy, MPF_BF16, cast_to_panel
+from mpf_tpu_torch.ops import _lib
 from mpf_tpu_torch.ops.blas3 import (
     matmul_in,
     unit_lower_inv,
@@ -254,13 +255,15 @@ def _factor_block_column_fused(slab, diag0: int, r: int, policy, pos0=None,
     info = torch.zeros((), dtype=torch.int32, device=dev)
     pivs, ologs, rowblocks = [], [], []
     for t in range(bc // r):
+        _lib.panels["fused"] += 1
         jj0 = t * r
         j0 = diag0 + jj0
         piv, pos, glist = strip_panel_pivots(slab, j0, pos, panel_dtype=policy.panel,
                                              jj0=jj0, r=r, pos_bound=pos_bound)
         rowblock, uinv, info_k = rowblock_assemble(slab, glist, jj0)
         info = torch.where((info == 0) & (info_k > 0), info_k + jj0, info)
-        panel_apply_update_trim(slab, pos, rowblock, uinv, j0, jj0, gemm_bf16=gemm_bf16)
+        with _lib.span("mpf.update"):
+            panel_apply_update_trim(slab, pos, rowblock, uinv, j0, jj0, gemm_bf16=gemm_bf16)
         pivs.append(piv)
         ologs.append(glist)
         rowblocks.append(rowblock)
@@ -268,30 +271,37 @@ def _factor_block_column_fused(slab, diag0: int, r: int, policy, pos0=None,
 
 
 def _fused_panel_stage(a, k: int, bc: int, r: int, policy, ipiv, info, ov: int = 0,
-                       pos0=None, pairs: bool = False):
+                       posg=None, pairs: bool = False):
     """Panel work (A1 + A2 + B) for block column ``k`` on its row window,
-    in place on ``a``; updates ``ipiv``/``info`` in place and returns
-    ``(info, stage)`` with ``stage = (k0, band_idx, glist, dests, u_all)``.
-    Deferred exchange: ``a`` is the (n + ov, n) extended matrix, the slab
-    runs down through the overflow strip (height m + ov) and ``pos0`` is
-    its slab-local position map.  ``pairs``: ``a`` is the (n, n) view of
+    in place on ``a``, as the ``mpf.panel`` stage; updates ``ipiv``/``info``
+    in place and returns ``(info, stage)`` with ``stage = (k0, band_idx,
+    glist, dests, u_all)``.  Deferred exchange: ``a`` is the (n + ov, n)
+    extended matrix, the slab runs down through the overflow strip (height
+    m + ov) and ``posg`` is the matrix's row-to-position map, from which
+    the slab-local one is taken.  ``pairs``: ``a`` is the (n, n) view of
     the pair-layout matrix, and the slab is copied out (kernel 15a) and
     back (15b) around the panel work, as `_factorize_3d` does
     (`mpf.py:624-629`)."""
-    n = a.shape[1]
-    m = _window(n, k)
-    k0 = n - m  # rows above k0 can neither pivot nor update
-    a3 = a.view(n // 2, 2, n) if pairs else None
-    sub = slab_extract(a3, k0, k, m, bc) if pairs else a[k0:, k:k + bc]
-    pos_l, olog_l, piv_l, u_all, info_b = _factor_block_column_fused(
-        sub, k - k0, r, policy, pos0=pos0, pos_bound=m if ov else None)
-    if pairs:
-        slab_writeback(a3, sub, k0, k)
-    ipiv[k:k + bc] = k0 + piv_l + 1
-    info = torch.where((info == 0) & (info_b > 0), info_b + k, info)
-    band_idx = (k - k0) + torch.arange(bc, device=a.device)
-    dests = k0 + pos_l[band_idx]       # band rows' new positions
-    glist = k0 + olog_l                # pivot-row sources
+    _lib.block_columns["fused"] += 1
+    with _lib.span("mpf.panel"):
+        n = a.shape[1]
+        m = _window(n, k)
+        k0 = n - m  # rows above k0 can neither pivot nor update
+        pos0 = None
+        if posg is not None:
+            posl = posg[k0:n + ov]
+            pos0 = torch.where(posl == SENT, posl, posl - k0)
+        a3 = a.view(n // 2, 2, n) if pairs else None
+        sub = slab_extract(a3, k0, k, m, bc) if pairs else a[k0:, k:k + bc]
+        pos_l, olog_l, piv_l, u_all, info_b = _factor_block_column_fused(
+            sub, k - k0, r, policy, pos0=pos0, pos_bound=m if ov else None)
+        if pairs:
+            slab_writeback(a3, sub, k0, k)
+        ipiv[k:k + bc] = k0 + piv_l + 1
+        info = torch.where((info == 0) & (info_b > 0), info_b + k, info)
+        band_idx = (k - k0) + torch.arange(bc, device=a.device)
+        dests = k0 + pos_l[band_idx]       # band rows' new positions
+        glist = k0 + olog_l                # pivot-row sources
     return info, (k0, band_idx, glist, dests, u_all)
 
 
@@ -315,7 +325,9 @@ def _inner_panel_step(slab, perm, piv_all, info, kk: int, jj0: int, rp: int, pol
     diagonal is at slab row / column ``kk + jj0`` / ``jj0``).  Returns
     ``(perm, info)``: the block column's composed row map and the first
     zero pivot (global, 1-based); ``piv_all`` gets the panel's global
-    0-based pivots in place."""
+    0-based pivots in place.  L21, the U12 inside the block column and
+    their update are the ``mpf.update`` stage."""
+    _lib.panels["masked"] += 1
     n, bc = slab.shape
     dev = slab.device
     j0 = kk + jj0
@@ -349,13 +361,14 @@ def _inner_panel_step(slab, perm, piv_all, info, kk: int, jj0: int, rp: int, pol
     slab[j0:j0 + rp, jj0:jj0 + rp] = lu
     e, ce = j0 + rp, jj0 + rp
     w = slab.dtype
-    l21 = matmul_in(slab[e:, jj0:ce], uinv, w).to(w)            # L21 = A21 U11^{-1}
-    slab[e:, jj0:ce] = l21
-    if ce < bc:
-        u12 = matmul_in(linv, slab[j0:e, ce:], w).to(w)         # U12 = L11^{-1} A12
-        slab[j0:e, ce:] = u12
-        # in place, computed in fp32 and rounded once to the working dtype
-        slab[e:, ce:] -= matmul_in(l21, u12, policy.gemm_in)
+    with _lib.span("mpf.update"):
+        l21 = matmul_in(slab[e:, jj0:ce], uinv, w).to(w)        # L21 = A21 U11^{-1}
+        slab[e:, jj0:ce] = l21
+        if ce < bc:
+            u12 = matmul_in(linv, slab[j0:e, ce:], w).to(w)     # U12 = L11^{-1} A12
+            slab[j0:e, ce:] = u12
+            # in place, computed in fp32 and rounded once to the working dtype
+            slab[e:, ce:] -= matmul_in(l21, u12, policy.gemm_in)
     return perm, info
 
 
@@ -382,23 +395,28 @@ def _factor_block_column(slab, kk: int, r: int, policy, pivot: bool, panel_kerne
 
 def _masked_block_column(a, k: int, bc: int, r: int, policy, pivot: bool, panel_kernel,
                          ipiv, info, perm_total):
-    """The masked path for block column ``k``, in place on ``a``; updates
-    ``ipiv`` in place and returns ``(info, perm_total)``."""
+    """The masked path for block column ``k``, in place on ``a``: the
+    ``mpf.panel`` stage, then, when pivoting, the ``mpf.exchange`` stage;
+    updates ``ipiv`` in place and returns ``(info, perm_total)``."""
+    _lib.block_columns["masked"] += 1
     n = a.shape[0]
-    slab = a[:, k:k + bc]
-    perm, piv_b, info_b = _factor_block_column(slab, k, r, policy, pivot, panel_kernel)
-    ipiv[k:k + bc] = piv_b + 1
-    info = torch.where((info == 0) & (info_b > 0), info_b, info)
+    with _lib.span("mpf.panel"):
+        slab = a[:, k:k + bc]
+        perm, piv_b, info_b = _factor_block_column(slab, k, r, policy, pivot, panel_kernel)
+        ipiv[k:k + bc] = piv_b + 1
+        info = torch.where((info == 0) & (info_b > 0), info_b, info)
     if pivot:
-        perm_total = perm_total[perm.long()]
-        # LASWP of the columns outside the block column (its own rows were
-        # exchanged panel by panel): the <= 2 bc rows that can move
-        cand = torch.cat([k + torch.arange(bc, dtype=torch.int32, device=a.device), piv_b])
-        src = perm[cand.long()]
-        if k > 0:
-            laswp_apply(a[:, :k], cand, src)
-        if k + bc < n:
-            laswp_apply(a[:, k + bc:], cand, src)
+        with _lib.span("mpf.exchange"):
+            perm_total = perm_total[perm.long()]
+            # LASWP of the columns outside the block column (its own rows were
+            # exchanged panel by panel): the <= 2 bc rows that can move
+            cand = torch.cat([k + torch.arange(bc, dtype=torch.int32, device=a.device),
+                              piv_b])
+            src = perm[cand.long()]
+            if k > 0:
+                laswp_apply(a[:, :k], cand, src)
+            if k + bc < n:
+                laswp_apply(a[:, k + bc:], cand, src)
     return info, perm_total
 
 
@@ -426,15 +444,18 @@ def _exchange(a, k: int, bc: int, stage, combined: bool) -> None:
     a[k:k + bc] = pivrows
 
 
-def _trailing_update(a, ks: int, kw: int, ce: int, policy, lu_diag, r: int,
-                     u12_block: int | None = None, linv=None):
+def _trailing_update(a, ks: int, kw: int, ce: int, policy, r: int, lu_diag=None,
+                     u12_block: int | None = None):
     """From the ``kw``-wide packed diagonal block at ``ks``: U12 :=
-    L11^{-1} A12 over the columns [ks + kw, ce), then A[ks+kw:, ks+kw:ce]
-    -= L21 @ U12 (kernel 6), in place (`mpf.py:486-577`).  ``ce = n`` is
-    the classic full-width update; the superblock driver passes the
-    superblock's end (mid update) and ``kw`` = S with ``u12_block`` (far
-    update), the lookahead driver the next block column's end and the
-    ``linv`` it computed once for both parts.
+    L11^{-1} A12 over the columns [ks + kw, ce) (the ``mpf.u12`` stage),
+    then A[ks+kw:, ks+kw:ce] -= L21 @ U12 (kernel 6, the ``mpf.trailing``
+    stage), in place (`mpf.py:486-577`).  ``ce = n`` is the classic
+    full-width update; the superblock driver passes the superblock's end
+    (mid update) and ``kw`` = S with ``u12_block`` (far update), the
+    lookahead driver the next block column's end.  ``lu_diag``: the
+    diagonal block, when the caller holds it apart from ``a``.  Returns
+    L11^{-1} (None for the far update, or when there is nothing to
+    update), which the lookahead driver reuses for the wide part.
 
     U12 is IEEE fp32 products of operands in the working dtype, rounded
     once.  With ``u12_block`` the far U12 is solved per inner block
@@ -443,27 +464,30 @@ def _trailing_update(a, ks: int, kw: int, ce: int, policy, lu_diag, r: int,
     products with fp32 accumulation, each band rounded once."""
     e = ks + kw
     w = ce - e
+    linv = None
     if w <= 0:
-        return a
-    if u12_block and kw > u12_block:
-        for bs in range(0, kw, u12_block):
-            bw = min(u12_block, kw - bs)
-            lo = ks + bs
-            linv_b = unit_lower_inv_blocked(a[lo:lo + bw, lo:lo + bw], base=min(r, 128))
-            u12_b = matmul_in(linv_b, a[lo:lo + bw, e:ce], a.dtype).to(a.dtype)
-            a[lo:lo + bw, e:ce] = u12_b
-            if bs + bw < kw:
-                corr = matmul_in(a[lo + bw:e, lo:lo + bw], u12_b, policy.gemm_in)
-                a[lo + bw:e, e:ce] = (a[lo + bw:e, e:ce].float() - corr).to(a.dtype)
-        u12 = a[ks:e, e:ce]
-    else:
-        if linv is None:
-            linv = unit_lower_inv_blocked(lu_diag, base=min(r, 128))
-        u12 = matmul_in(linv, a[ks:e, e:ce], a.dtype).to(a.dtype)
-        a[ks:e, e:ce] = u12
-    l21 = a[e:, ks:e].to(policy.gemm_in)
-    trailing_gemm_sub(a, l21, u12.to(policy.gemm_in), e, ncols=w)
-    return a
+        return linv
+    with _lib.span("mpf.u12"):
+        if u12_block and kw > u12_block:
+            for bs in range(0, kw, u12_block):
+                bw = min(u12_block, kw - bs)
+                lo = ks + bs
+                linv_b = unit_lower_inv_blocked(a[lo:lo + bw, lo:lo + bw], base=min(r, 128))
+                u12_b = matmul_in(linv_b, a[lo:lo + bw, e:ce], a.dtype).to(a.dtype)
+                a[lo:lo + bw, e:ce] = u12_b
+                if bs + bw < kw:
+                    corr = matmul_in(a[lo + bw:e, lo:lo + bw], u12_b, policy.gemm_in)
+                    a[lo + bw:e, e:ce] = (a[lo + bw:e, e:ce].float() - corr).to(a.dtype)
+            u12 = a[ks:e, e:ce]
+        else:
+            linv = unit_lower_inv_blocked(a[ks:e, ks:e] if lu_diag is None else lu_diag,
+                                          base=min(r, 128))
+            u12 = matmul_in(linv, a[ks:e, e:ce], a.dtype).to(a.dtype)
+            a[ks:e, e:ce] = u12
+    with _lib.span("mpf.trailing"):
+        l21 = a[e:, ks:e].to(policy.gemm_in)
+        trailing_gemm_sub(a, l21, u12.to(policy.gemm_in), e, ncols=w)
+    return linv
 
 
 def _lookahead_ok(n: int, r: int, block: int, policy, pivot: bool, panel_kernel,
@@ -491,29 +515,31 @@ def _lookahead_factorize(a, r: int, policy, block: int, ipiv, info, perm_total) 
     eager = True               # this block column's exchange is still to do
     for i, (k, bc) in enumerate(nb):
         u_all = stage[4]
-        if eager:
-            _exchange(a, k, bc, stage, combined=True)
-        a[k:k + bc, k:k + bc] = u_all
-        perm_total = _compose_perm(perm_total, k, bc, stage)
+        with _lib.span("mpf.exchange"):
+            if eager:
+                _exchange(a, k, bc, stage, combined=True)
+            a[k:k + bc, k:k + bc] = u_all
+            perm_total = _compose_perm(perm_total, k, bc, stage)
         e = k + bc
         if i + 1 == len(nb):
             if e < n:
-                _trailing_update(a, k, bc, n, policy, u_all, r)
+                _trailing_update(a, k, bc, n, policy, r, u_all)
             break
         kn, bc2 = nb[i + 1]
         e2 = kn + bc2
-        linv = unit_lower_inv_blocked(u_all, base=min(r, 128))
-        _trailing_update(a, k, bc, e2, policy, u_all, r, linv=linv)
+        linv = _trailing_update(a, k, bc, e2, policy, r, u_all)
         info, stage = _fused_panel_stage(a, kn, bc2, r, policy, ipiv, info)
         eager = e2 >= n
         if eager:
             continue           # nothing wide to run the exchange in
-        u12w = matmul_in(linv, a[k:e, e2:], a.dtype).to(a.dtype)
-        a[k:e, e2:] = u12w
-        l21 = a[e:, k:e].to(policy.gemm_in)
-        _, pivrows = gemm_trailing(a, l21, u12w.to(policy.gemm_in), e, e2,
-                                   xargs=(kn, stage[2], stage[3]))
-        a[kn:kn + bc2] = pivrows
+        with _lib.span("mpf.u12"):
+            u12w = matmul_in(linv, a[k:e, e2:], a.dtype).to(a.dtype)
+            a[k:e, e2:] = u12w
+        with _lib.span("mpf.trailing"):
+            l21 = a[e:, k:e].to(policy.gemm_in)
+            _, pivrows = gemm_trailing(a, l21, u12w.to(policy.gemm_in), e, e2,
+                                       xargs=(kn, stage[2], stage[3]))
+            a[kn:kn + bc2] = pivrows
     return MPFResult(lu=a, ipiv=ipiv, info=info, perm=perm_total)
 
 
@@ -551,6 +577,7 @@ def _deferred_factorize(a, r: int, policy, block: int, S: int, ipiv, info,
     else:
         a_ext = torch.empty((n + ov, n), dtype=a.dtype, device=dev)
         a_ext[:n] = a
+    lu = a_ext[:n]
     drop = n + ov
     posg = torch.cat([torch.arange(n, dtype=torch.int32, device=dev),
                       torch.full((ov + 1,), SENT, dtype=torch.int32, device=dev)])
@@ -560,34 +587,34 @@ def _deferred_factorize(a, r: int, policy, block: int, S: int, ipiv, info,
         gend = min(group[-1] + block, n)        # defer only dests >= gend
         for si, k in enumerate(group):
             bc = min(block, n - k)
-            k0 = n - _window(n, k)
-            posl = posg[k0:n + ov]
-            pos0 = torch.where(posl == SENT, posl, posl - k0)
             info, stage = _fused_panel_stage(a_ext, k, bc, r, policy, ipiv, info, ov=ov,
-                                             pos0=pos0)
+                                             posg=posg)
             glist, dests, u_all = stage[2], stage[3], stage[4]
-            gl = glist.long()
-            perm_total = _compose_perm(perm_total, k, bc, stage, vglist=posg[gl])
-            defer = dests >= gend
-            sbase = n + si * block              # this column's overflow slots
-            band = torch.arange(k, k + bc, dtype=torch.int32, device=dev)
-            copy_rows_block(a_ext, k, sbase, bc)
-            a_ext[k:k + bc] = rows_exchange(a_ext, k, glist, torch.where(defer, band, dests))
-            a_ext[k:k + bc, k:k + bc] = u_all
-            # consumed overflow rows die; deferred rows live in their slots
-            # at their destinations, whose stale copies die
-            posg[torch.where(gl >= n, gl, drop)] = SENT
-            slots = band.long() + (sbase - k)
-            posg[torch.where(defer, slots, drop)] = dests.to(torch.int32)
-            posg[torch.where(defer, dests.long(), drop)] = SENT
+            with _lib.span("mpf.exchange"):
+                gl = glist.long()
+                perm_total = _compose_perm(perm_total, k, bc, stage, vglist=posg[gl])
+                defer = dests >= gend
+                sbase = n + si * block              # this column's overflow slots
+                band = torch.arange(k, k + bc, dtype=torch.int32, device=dev)
+                copy_rows_block(a_ext, k, sbase, bc)
+                a_ext[k:k + bc] = rows_exchange(a_ext, k, glist,
+                                                torch.where(defer, band, dests))
+                a_ext[k:k + bc, k:k + bc] = u_all
+                # consumed overflow rows die; deferred rows live in their slots
+                # at their destinations, whose stale copies die
+                posg[torch.where(gl >= n, gl, drop)] = SENT
+                slots = band.long() + (sbase - k)
+                posg[torch.where(defer, slots, drop)] = dests.to(torch.int32)
+                posg[torch.where(defer, dests.long(), drop)] = SENT
             if k + bc < n:
-                _trailing_update(a_ext, k, bc, n, policy, u_all, r)
-        dov = posg[n:n + ov].clone()
-        flush_overflow(a_ext, n, dov)
-        live = dov < n
-        posg[torch.where(live, dov.long(), drop)] = dov
-        posg[n:] = SENT
-    return MPFResult(lu=a_ext[:n], ipiv=ipiv, info=info, perm=perm_total)
+                _trailing_update(a_ext, k, bc, n, policy, r, u_all)
+        with _lib.span("mpf.exchange"):
+            dov = posg[n:n + ov].clone()
+            flush_overflow(a_ext, n, dov)
+            live = dov < n
+            posg[torch.where(live, dov.long(), drop)] = dov
+            posg[n:] = SENT
+    return MPFResult(lu=lu, ipiv=ipiv, info=info, perm=perm_total)
 
 
 def _pairs_ok(n: int, block: int, r: int, policy, pivot: bool, panel_kernel,
@@ -642,14 +669,18 @@ def _factorize_3d(a3, r: int, policy, block: int) -> MPFResult:
             break
         info, stage = _fused_panel_stage(a, k, bc, r, policy, ipiv, info, pairs=True)
         u_all = stage[4]
-        band_write_rows(a3, rows_exchange3(a3, k, stage[2], stage[3]), k)
-        a[k:k + bc, k:k + bc] = u_all
-        perm_total = _compose_perm(perm_total, k, bc, stage)
+        with _lib.span("mpf.exchange"):
+            band_write_rows(a3, rows_exchange3(a3, k, stage[2], stage[3]), k)
+            a[k:k + bc, k:k + bc] = u_all
+            perm_total = _compose_perm(perm_total, k, bc, stage)
         e = k + bc
         if e < n:
-            linv = unit_lower_inv_blocked(u_all, base=min(r, 128))
-            u12_transform(a3, linv, k, e, n - e)
-            trailing_sub3(a3, a[e:, k:e].to(policy.gemm_in), a[k:e, e:].to(policy.gemm_in), e)
+            with _lib.span("mpf.u12"):
+                linv = unit_lower_inv_blocked(u_all, base=min(r, 128))
+                u12_transform(a3, linv, k, e, n - e)
+            with _lib.span("mpf.trailing"):
+                trailing_sub3(a3, a[e:, k:e].to(policy.gemm_in),
+                              a[k:e, e:].to(policy.gemm_in), e)
     return MPFResult(lu=a3, ipiv=ipiv, info=info, perm=perm_total)
 
 
@@ -732,9 +763,10 @@ def _factorize_inplace(a, r: int, policy, block: int, pivot: bool, panel_kernel,
             break
         if _takes_fused(bc, r, policy, pivot, panel_kernel):
             info, stage = _fused_panel_stage(a, k, bc, r, policy, ipiv, info)
-            _exchange(a, k, bc, stage, knobs.combined)
-            a[k:k + bc, k:k + bc] = stage[4]
-            perm_total = _compose_perm(perm_total, k, bc, stage)
+            with _lib.span("mpf.exchange"):
+                _exchange(a, k, bc, stage, knobs.combined)
+                a[k:k + bc, k:k + bc] = stage[4]
+                perm_total = _compose_perm(perm_total, k, bc, stage)
         else:
             info, perm_total = _masked_block_column(a, k, bc, r, policy, pivot,
                                                     panel_kernel, ipiv, info, perm_total)
@@ -742,9 +774,9 @@ def _factorize_inplace(a, r: int, policy, block: int, pivot: bool, panel_kernel,
             # superblock S: the mid update stops at the superblock's end; the
             # far columns take one K = S update once the superblock is done
             sb_end = n if S is None else min(k - k % S + S, n)
-            _trailing_update(a, k, bc, sb_end, policy, a[k:k + bc, k:k + bc], r)
+            _trailing_update(a, k, bc, sb_end, policy, r)
             if S is not None and k + bc == sb_end < n:
-                _trailing_update(a, sb_end - S, S, n, policy, None, r, u12_block=block)
+                _trailing_update(a, sb_end - S, S, n, policy, r, u12_block=block)
     return MPFResult(lu=a, ipiv=ipiv, info=info, perm=perm_total)
 
 

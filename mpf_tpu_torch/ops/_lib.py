@@ -18,11 +18,20 @@ Every C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`call` raises when it is nonzero.  Each kernel has a launch counter
 (bumped by its wrapper where it launches) and each plain PyTorch version a
 call counter (bumped by the plain version itself), so a run can show which
-path it took.
+path it took; the block-column loop counts its block columns by path and
+its r-panels.
+
+:func:`span` names a stage of the block-column loop (``mpf.panel``,
+``mpf.update``, ``mpf.exchange``, ``mpf.u12``, ``mpf.trailing``) for
+``torch.profiler``: while a profiler records, it is a
+``record_function`` range, on the profiler's clock beside the device
+activity, and each device operation launched inside it is correlated with
+it; otherwise it is one shared no-op context.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -90,6 +99,10 @@ plain_calls = {k: 0 for k in KERNELS}
 #: (its update pass) and 13 that TMA could not read in place (0 on the main
 #: path).
 copies = {"gemm_operand": 0}
+#: Block columns factored by the block-column loop, by path.
+block_columns = {"fused": 0, "masked": 0}
+#: r-panels run inside those block columns, by path.
+panels = {"fused": 0, "masked": 0}
 
 P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argument types of each C entry point (pointers and the stream as c_void_p)
@@ -137,9 +150,23 @@ _lock = threading.Lock()
 
 
 def reset_counts() -> None:
-    for d in (launches, plain_calls, copies):
+    for d in (launches, plain_calls, copies, block_columns, panels):
         for k in d:
             d[k] = 0
+
+
+_NO_SPAN = contextlib.nullcontext()
+_profiling = torch.autograd._profiler_enabled
+
+
+def span(name: str):
+    """A context naming a stage for ``torch.profiler``: a
+    ``record_function(name)`` range while a profiler records, else one
+    shared no-op context.  The check is the profiler's own enabled flag:
+    building a ``record_function`` costs about ten microseconds even with
+    no profiler running, which the loop's few hundred stages a
+    factorization would add to the host's issue time."""
+    return torch.profiler.record_function(name) if _profiling() else _NO_SPAN
 
 
 def counted_launch(name: str) -> None:
