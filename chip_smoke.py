@@ -328,7 +328,7 @@ def main() -> int:
         getf2_npv_block, getf2_npv_inv_block, getf2_npv_inv_plain, hgetf2_panel_plain,
         hgetf2_panel_swaps, laswp_apply, laswp_plain)
     from mpf_tpu_torch.ops.panel_strip import (
-        SENT, barrier_probe, strip_panel_pivots, strip_panel_pivots_plain)
+        SENT, barrier_probe, exchange_polls, strip_panel_pivots, strip_panel_pivots_plain)
     from mpf_tpu_torch.precision import cast_to_panel
     from mpf_tpu_torch.utils import matgen
     from mpf_tpu_torch.utils.oracle import (
@@ -489,6 +489,15 @@ def main() -> int:
     slab0 = hpl[:, :bc].contiguous()           # first block column, m = n
     pos0 = torch.arange(n, dtype=torch.int32, device=dev)
 
+    def polls_per_column(fn, reps=10):
+        """Block 0's poll rounds a column of kernel 1 over ``reps`` calls
+        of ``fn`` (r columns each): 1 when every candidate was there at the
+        first read."""
+        exchange_polls()
+        for _ in range(reps):
+            fn()
+        return exchange_polls() / (reps * r)
+
     def piv_eq(a, b):
         return all(torch.equal(x, y) for x, y in zip(a, b))
 
@@ -523,20 +532,26 @@ def main() -> int:
     ms = event_ms(lambda: strip_panel_pivots(slab0, 0, pos0, torch.bfloat16, 0, r))
     pms = event_ms(lambda: strip_panel_pivots_plain(slab0, 0, pos0, torch.bfloat16, 0, r), 2)
     # the device times (CUDA graph replays) beside the wrapper's, bf16 and
-    # fp32 panels; and what one grid barrier of one block an SM costs alone
-    # (cooperative groups' grid.sync(), kernel 1's arrival counter, the
-    # counter with kernel 1's read of the G keys behind it): r of them a panel
+    # fp32 panels; block 0's poll rounds a column; and what one exchange of
+    # one block an SM costs alone (cooperative groups' grid.sync(), an
+    # arrival counter, the counter with a read of the G keys behind it,
+    # kernel 1's flagged slots, the slots behind a released record): r of
+    # them a panel
     dms1 = graph_ms(lambda: strip_panel_pivots(slab0, 0, pos0, torch.bfloat16, 0, r))
     dms1f = graph_ms(lambda: strip_panel_pivots(slab0, 0, pos0, torch.float32, 0, r))
+    polls1 = polls_per_column(lambda: strip_panel_pivots(slab0, 0, pos0, torch.bfloat16, 0, r))
     bar_iters = 2000
     bar_us = {kind: 1e3 * event_ms(lambda: barrier_probe(k, bar_iters), 3) / bar_iters
-              for k, kind in enumerate(("grid_sync", "counter", "counter_and_keys"))}
-    print(f"[INFO] k1 grid barrier alone, us: {json.dumps(bar_us)}; kernel 1 device "
-          f"{dms1:.4f} ms bf16 panel, {dms1f:.4f} ms fp32 panel ({r} barriers)", flush=True)
+              for k, kind in enumerate(("grid_sync", "counter", "counter_and_keys", "slots",
+                                        "slots_release"))}
+    print(f"[INFO] k1 exchange alone, us: {json.dumps(bar_us)}; kernel 1 device "
+          f"{dms1:.4f} ms bf16 panel, {dms1f:.4f} ms fp32 panel ({r} exchanges), "
+          f"polls a column {polls1:.3f}", flush=True)
     # panel read once (fp32), positions read and written, pivots written
     record("strip_pivots", *errs(pairs1), ms, pms,
            bound(4 * n * r + 8 * n + 8 * r, panel_ops(n, 0, r)), None,
-           device_ms=dms1, fp32_panel_device_ms=dms1f, barrier_us=bar_us)
+           device_ms=dms1, fp32_panel_device_ms=dms1f, barrier_us=bar_us,
+           polls_per_column=polls1)
 
     # #2 and #3 on panels of the uniform slab, where L21 is O(1), so a
     # missing L11^{-1} or update GEMM moves the result by O(1), and on the
@@ -913,7 +928,9 @@ def main() -> int:
                                  .multi_processor_count))
         if mb_ == BIG_N:
             big_ms = {"ms": event_ms(lambda: strip_panel_pivots(big, 0, posb, BF, 0, r)),
-                      "device_ms": graph_ms(lambda: strip_panel_pivots(big, 0, posb, BF, 0, r))}
+                      "device_ms": graph_ms(lambda: strip_panel_pivots(big, 0, posb, BF, 0, r)),
+                      "polls_per_column": polls_per_column(
+                          lambda: strip_panel_pivots(big, 0, posb, BF, 0, r))}
         del big, posb
     big_ms["bound_ms"] = bound(2 * BIG_N * r + 8 * BIG_N + 8 * r, panel_ops(BIG_N, 0, r))[0]
     print(f"[INFO] k1 bf16 m={BIG_N}: {json.dumps(big_ms)}", flush=True)

@@ -138,8 +138,9 @@ def strip_panel_pivots(slab, off: int, pos, panel_dtype=None, jj0: int = 0,
     ``2**31 - 1`` are dead: never searched, swapped or eliminated.
 
     CPU tensors take the plain version; CUDA tensors launch kernel 1 (one
-    cooperative launch, r grid barriers) on the current stream, with that
-    stream's scratch (:func:`_scratch`)."""
+    cooperative launch, r exchanges of the blocks' candidates through
+    flagged slots) on the current stream, with that stream's scratch
+    (:func:`_scratch`)."""
     m, w = slab.shape
     r = w if r is None else r
     panel_dtype = panel_dtype or slab.dtype
@@ -170,10 +171,28 @@ def strip_panel_pivots(slab, off: int, pos, panel_dtype=None, jj0: int = 0,
 def _scratch(device: torch.device):
     """Kernel 1's scratch for launches on ``device`` from the current
     stream: the grid's upper bound (the SM count) and one zeroed buffer
-    holding the grid barrier's counters (each launch leaves them at 0) and
-    a key and a candidate record per column (r <= 128) and block.  Made
-    once for each stream, so launches on two streams never share it."""
+    holding a header of counters (the launch count, whose successor flags
+    a launch's slots; the poll rounds :func:`exchange_polls` reads) and a
+    candidate slot and tail per column (r <= 128) and block.  Made once for
+    each stream, so launches on two streams never share it."""
     return _stream_scratch(device, torch.cuda.current_stream().cuda_stream)
+
+
+_POLL_WORD = 3  # the header's 32-bit word of poll rounds (csrc kPollWord)
+
+
+def exchange_polls(device=None) -> int:
+    """The poll rounds block 0 of kernel 1 made over its columns' exchanges
+    on the current stream since the last call (which this one resets): one
+    a column when every block's candidate was there at the first read, so
+    at least r a launch; many when the exchange waits on the slowest block.
+    Synchronises: for ``utils/panel_bench.py`` and ``chip_smoke.py``, never
+    on the factorization path."""
+    dev = torch.device("cuda", torch.cuda.current_device()) if device is None else device
+    word = _scratch(dev)[1][4 * _POLL_WORD:4 * _POLL_WORD + 4].view(torch.int32)
+    n = int(word.item()) & 0xFFFFFFFF
+    word.zero_()
+    return n
 
 
 @functools.lru_cache(maxsize=16)
@@ -186,8 +205,13 @@ def _stream_scratch(device: torch.device, stream: int):
 def barrier_probe(kind: int, iters: int, device=None) -> None:
     """Launch kernel 1's grid barrier probe on ``device`` (default: the
     current CUDA device): ``iters`` grid barriers across one block an SM,
-    ``kind`` 0 cooperative groups' ``grid.sync()``, 1 kernel 1's arrival
-    counter, 2 the counter with kernel 1's read of the G keys behind it.
+    ``kind`` 0 cooperative groups' ``grid.sync()``, 1 an arrival counter
+    (kernel 7's), 2 the counter with a read of the G keys behind it, 3
+    kernel 1's exchange alone (each block writes its flagged slot, warp 0
+    polls the G keys, reduces them and reads the winner's values), 4 kind
+    3 with a released record (a release fence between 128 flagged words
+    and the slot, an acquire fence after the poll).  Kinds 3 and 4 take a
+    multiple of 8 ``iters``.
     Asynchronous; time it with CUDA events (no pivot search, no count)."""
     dev = torch.device("cuda", torch.cuda.current_device()) if device is None else device
     gmax, scratch = _scratch(dev)

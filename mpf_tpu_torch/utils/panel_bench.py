@@ -19,9 +19,13 @@ and prints one JSON line: per case the wrapper's time (CUDA events over
 ``--reps`` calls back to back, the host's launch time where that is
 longer) and the device's (``device_ms``: the calls captured in one CUDA
 graph and replayed), with the timers of ``utils/timing.py`` that
-``chip_smoke.py`` uses.
+``chip_smoke.py`` uses; for kernel 1, where the tree counts them, block
+0's poll rounds a column (``polls_per_column``).
 
-``--hashes`` prints one JSON line of SHA-256 digests instead: kernel 7's
+``--hashes`` prints one JSON line of SHA-256 digests instead: kernel 1's
+outputs (piv, pos, glist) on both slabs at m = 16384, fp32 and bf16, quant16
+and exact, from the identity positions and from shuffled ones at offset 512,
+with an fp32 panel, and on a bf16 slab of 65536 rows; kernel 7's
 outputs (piv, perm, composed map, srcs) on both matrices' first panels at
 m = 16384 in each panel dtype at the diagonal offsets 0 and 8192, and at
 m = 65536; kernel 8's and 8b's (LU, L^-1, U^-1, info) on the pivoted
@@ -98,6 +102,17 @@ def panel_times(reps: int = 5) -> dict:
     }
     out = {name: {"ms": event_ms(fn, reps), "device_ms": graph_ms(fn)}
            for name, fn in cases.items()}
+    try:  # a tree whose kernel 1 counts its exchange's poll rounds
+        from mpf_tpu_torch.ops.panel_strip import exchange_polls
+    except ImportError:
+        exchange_polls = None
+    if exchange_polls is not None:
+        for name, fn in cases.items():
+            if name.startswith("k1_"):
+                exchange_polls()
+                for _ in range(reps):
+                    fn()
+                out[name]["polls_per_column"] = exchange_polls() / (reps * _R)
     out["device"] = torch.cuda.get_device_name(0)
     return out
 
@@ -147,6 +162,18 @@ def hashes() -> dict:
             s = slab.to(sdt)
             glist = strip_panel_pivots(s, 0, pos, bf, 0, _R)[2]
             out[f"k2_{corpus}_{str(sdt)[6:]}"] = _digest(*rowblock_assemble(s, glist, 0))
+            for q16 in (True, False):
+                for p, off in ((pos, 0), (prev, 512)):
+                    tag = f"k1_{corpus}_{str(sdt)[6:]}slab_{'quant16' if q16 else 'exact'}_off{off}"
+                    out[tag] = _digest(*strip_panel_pivots(s, off, p, bf, off, _R, quant16=q16))
+        out[f"k1_{corpus}_fp32panel"] = _digest(*strip_panel_pivots(slab, 0, pos, f32, 0, _R))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    big = (torch.rand((_BIG, 2 * _R), generator=gen, device=dev) * 2 - 1).to(bf)
+    pos_big = torch.arange(_BIG, dtype=torch.int32, device=dev)
+    for q16 in (True, False):
+        got = strip_panel_pivots(big, 0, pos_big, bf, 0, _R, quant16=q16)
+        out[f"k1_m65536_bf16slab_{'quant16' if q16 else 'exact'}"] = _digest(*got)
+    del big
     gen = torch.Generator(device=dev).manual_seed(7)
     big16 = (torch.rand((_BIG, _R), generator=gen, device=dev) * 2 - 1).to(f16)
     out["k7_m65536_fp16"] = _digest(*hgetf2_panel_swaps(big16, 0, None, panel_dtype=f16))

@@ -32,7 +32,8 @@ from mpf_tpu_torch.ops.panel_pallas import (
 from mpf_tpu_torch.ops.pair3d import (
     band_write_rows, band_write_rows_plain, slab_extract, slab_extract_plain, slab_writeback,
     slab_writeback_plain, u12_transform, u12_transform_plain)
-from mpf_tpu_torch.ops.panel_strip import SENT, strip_panel_pivots, strip_panel_pivots_plain
+from mpf_tpu_torch.ops.panel_strip import (
+    SENT, exchange_polls, strip_panel_pivots, strip_panel_pivots_plain)
 from mpf_tpu_torch.precision import cast_to_panel
 from mpf_tpu_torch.utils import matgen
 from mpf_tpu_torch.utils.oracle import (
@@ -1166,17 +1167,58 @@ def test_strip_pivots_redesign_largest_slice(cuda, q16):
             assert torch.equal(x, y)
 
 
+def _stale_slot_launches(dev):
+    """(slab, pos, r, plain result) of launches whose panel width and grid
+    change from one to the next: r 128 -> 8 -> 48 -> 64 -> 128 and m 16384
+    -> 200 -> 50 -> 64 -> 16384 (G 132 -> 100 -> 50 -> 64 -> 132 on 132
+    SMs; r <= m, since a column no row can pivot on reads apart in the
+    kernel and the plain version), then the earlier sizes at r = 64."""
+    out = []
+    for m, r in ((16384, 128), (200, 8), (50, 48), (64, 64), (16384, 128),
+                 (1000, 64), (16384, 64), (200, 64), (5000, 64)):
+        slab = torch.from_numpy(matgen.random_dense(m, seed=m + r)[:, :128].copy()).to(dev)
+        pos = torch.arange(m, dtype=torch.int32, device=dev)
+        out.append((slab, pos, r, strip_panel_pivots_plain(slab, 0, pos, BF, r=r)))
+    return out
+
+
 def test_strip_pivots_back_to_back_launches(cuda):
-    """Kernel 1's grid barrier counter is reset by each launch: many
-    launches in a row on one stream, with grids of different sizes, give
-    the plain version's pivots every time."""
-    for m in (16384, 1000, 16384, 200, 5000):
-        slab = torch.from_numpy(matgen.random_dense(m, seed=m)[:, :64].copy()).to(cuda)
-        pos = torch.arange(m, dtype=torch.int32, device=cuda)
-        ref = strip_panel_pivots_plain(slab, 0, pos, BF, r=64)
+    """Kernel 1's slots carry a flag from the launch count its scratch
+    keeps: launches in a row on one stream, with r and the grid changing
+    from one to the next, give the plain version's pivots every time (a
+    slot an earlier launch left never reads as current), and block 0 polls
+    at least once a column (``exchange_polls``)."""
+    exchange_polls()
+    for slab, pos, r, ref in _stale_slot_launches(cuda):
         for _ in range(3):
-            got = strip_panel_pivots(slab, 0, pos, BF, r=64)
+            got = strip_panel_pivots(slab, 0, pos, BF, r=r)
             assert all(torch.equal(x, y) for x, y in zip(got, ref))
+            assert exchange_polls() >= r
+
+
+def test_strip_pivots_stale_slots_on_two_streams(cuda):
+    """The launches of the test above interleaved on two streams, one in
+    order and one in reverse: each stream's scratch keeps its own launch
+    count, so every launch gives the plain version's pivots, and each
+    stream's block 0 polls at least once a column."""
+    cases = _stale_slot_launches(cuda)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            exchange_polls()
+    outs = [[], []]
+    for k in range(2 * len(cases)):
+        i = k % 2
+        slab, pos, r, ref = cases[k // 2] if i == 0 else cases[-1 - k // 2]
+        with torch.cuda.stream(streams[i]):
+            outs[i].append((strip_panel_pivots(slab, 0, pos, BF, r=r), ref))
+    torch.cuda.synchronize()
+    for i, st in enumerate(streams):
+        for got, ref in outs[i]:
+            assert all(torch.equal(x, y) for x, y in zip(got, ref))
+        with torch.cuda.stream(st):
+            assert exchange_polls() >= sum(c[2] for c in cases)
 
 
 @pytest.mark.parametrize("r", [8, 48, 128])

@@ -17,7 +17,13 @@ inverted position) over its rows in three levels (thread, warp, block) and
 then over the G blocks' keys, one pass of one warp.  A plain mirror of that
 reduction, over every split of m rows into G = 1..132 blocks, must pick
 the plain version's pivot row, with ties in |value|, frozen and dead rows.
-Inputs from numpy with fixed seeds."""
+The blocks' candidates travel through flagged slots: 8-byte words of 4
+bytes of payload beside the launch's 4-byte flag.  A plain mirror of that
+encoding must give back every key and value bit (the pivot value from the
+key and a sign bit), reject a word of an older launch, wrap the flag from
+2^32 - 1 past 0, and, read from a scratch that an earlier launch with more
+blocks left, still lead the reduction to the plain pivot.  Inputs from
+numpy with fixed seeds."""
 
 import numpy as np
 import pytest
@@ -217,14 +223,29 @@ def record_reduction(keys: np.ndarray, g_max: int):
     then warp 0 over the G keys — lane t takes keys t, t + 32, ... (only a
     strictly larger key replaces), then a butterfly over the lanes.
     Returns (key, slab row), row -1 if no row can pivot."""
+    bkeys, brow = block_candidates(keys, g_max)
+    key, blk = warp_reduction(bkeys)
+    return key, (int(brow[blk]) if key else -1)
+
+
+def block_candidates(keys: np.ndarray, g_max: int):
+    """Each block's key (the largest of its rows') and its slab row, rows
+    split as the launch splits them (rpb = ceil(m / g_max) rows a block, G
+    = ceil(m / rpb) blocks)."""
     m = keys.shape[0]
     rpb = -(-m // g_max)
     g = -(-m // rpb)
     padded = np.zeros(g * rpb, dtype=np.uint64)
     padded[:m] = keys
     blocks = padded.reshape(g, rpb)
-    bkeys = blocks.max(axis=1)
-    brow = np.arange(g) * rpb + blocks.argmax(axis=1)
+    return blocks.max(axis=1), np.arange(g) * rpb + blocks.argmax(axis=1)
+
+
+def warp_reduction(bkeys: np.ndarray):
+    """Warp 0 over the G blocks' keys: lane t takes keys t, t + 32, ...
+    (only a strictly larger key replaces), then a butterfly over the lanes.
+    Returns (key, block)."""
+    g = bkeys.shape[0]
     lane_key = [np.uint64(0)] * 32
     lane_blk = [0] * 32
     for t in range(32):
@@ -240,8 +261,7 @@ def record_reduction(keys: np.ndarray, g_max: int):
         lane_key, lane_blk = nk, nb
         o >>= 1
     assert len(set(lane_key)) == 1
-    key = lane_key[0]
-    return key, (int(brow[lane_blk[0]]) if key else -1)
+    return lane_key[0], lane_blk[0]
 
 
 def _plain_pivot_row(col: np.ndarray, pos: np.ndarray, d: int, quant16: bool) -> int:
@@ -280,3 +300,162 @@ def test_record_reduction_with_no_candidate():
     keys = _keys(np.ones(5, np.float32), pos, 3, False)
     for g_max in (1, 2, 5):
         assert record_reduction(keys, g_max) == (0, -1)
+
+
+# -------------------------------------------- kernel 1's flagged slots
+
+W = 8
+SLOT_WORDS = 2 + W - 1                # key high and sign, key low, later strip values
+SLOT_CHUNKS = (SLOT_WORDS + 1) // 2   # 16-byte chunks
+MASK32 = 0xFFFFFFFF
+
+
+def next_flag(stored: int) -> int:
+    """A launch's flag: the launch count kept in the scratch, plus 1 (32
+    bits, wrapping past 0, the zeroed scratch's flag); the launch stores it
+    back as it leaves."""
+    return (stored + 1) & MASK32 or 1
+
+
+def _bits(x) -> int:
+    return int(np.float32(x).view(np.uint32))
+
+
+def pack_slot(key: int, vals: np.ndarray, jc: int, flag: int) -> np.ndarray:
+    """The words of a block's slot for column jc of its strip: the key's
+    high half (top bit 0) with the sign of vals[jc] in its top bit, the
+    low half, then vals[jc + 1:]; payload in the low 4 bytes of each word,
+    the flag in the high 4; padded with a zero word to whole 16-byte
+    chunks."""
+    vals = np.asarray(vals, dtype=np.float32)
+    payload = [(key >> 32) | (_bits(vals[jc]) & 0x80000000), key & MASK32]
+    payload += [_bits(v) for v in vals[jc + 1:]]
+    payload += [0] * (2 * ((len(payload) + 1) // 2) - len(payload))
+    return np.array([(flag << 32) | p for p in payload], dtype=np.uint64)
+
+
+def unpack_slot(words: np.ndarray, jc: int, flag: int):
+    """(key, pivot value, vals[jc + 1:]) from a slot's words, or None while
+    any word carries another flag (the kernel then reads the chunk again).
+    The pivot value is the key's |value| bits with the sign."""
+    if any(int(w) >> 32 != flag for w in words):
+        return None
+    low = [int(w) & MASK32 for w in words]
+    key = ((low[0] & 0x7FFFFFFF) << 32) | low[1]
+    pivot = np.array([low[0]], dtype=np.uint32).view(np.float32)[0]
+    vals = np.array(low[2:SLOT_WORDS - jc], dtype=np.uint32).view(np.float32)
+    return key, pivot, vals
+
+
+def slot_words(j: int, jc: int, g: int, b: int) -> np.ndarray:
+    """Word offsets of block b's slot for column j in the scratch's slot
+    area (chunk c of slot (j, b) at chunk (j SLOT_CHUNKS + c) g + b)."""
+    nc = (SLOT_WORDS - jc + 1) // 2
+    chunks = (j * SLOT_CHUNKS + np.arange(nc)) * g + b
+    return (2 * chunks[:, None] + np.arange(2)).reshape(-1)
+
+
+def _random_candidate(rng, jc, quant16):
+    vals = rng.standard_normal(W).astype(np.float32)
+    vals[rng.integers(0, W)] = rng.choice([-0.0, np.inf, -np.inf, np.nan, 1e-45])
+    hi = _bits(vals[jc]) & (0x7FFF0000 if quant16 else 0x7FFFFFFF)
+    return (hi << 32) | int(rng.integers(2**31, 2**32)), vals
+
+
+@pytest.mark.parametrize("quant16", [True, False], ids=["quant16", "exact"])
+@pytest.mark.parametrize("jc", range(W))
+def test_slot_words_round_trip(jc, quant16):
+    """Every key bit and later value bit comes back (-0.0, infinities, NaN
+    and subnormals included), and the pivot value is the key's |value|
+    bits with vals[jc]'s sign: vals[jc] itself for the exact search, its
+    top 15 bits under quant16; a column's slot takes ceil((9 - jc) / 2)
+    chunks."""
+    rng = np.random.default_rng(jc + 8 * quant16)
+    for _ in range(50):
+        key, vals = _random_candidate(rng, jc, quant16)
+        flag = int(rng.integers(1, 2**32))
+        words = pack_slot(key, vals, jc, flag)
+        assert len(words) == 2 * ((SLOT_WORDS - jc + 1) // 2)
+        got = unpack_slot(words, jc, flag)
+        assert got is not None and got[0] == key
+        want = _bits(vals[jc]) & (0xFFFF0000 if quant16 else MASK32)
+        assert _bits(got[1]) == want
+        assert np.array_equal(got[2].view(np.uint32), vals[jc + 1:].view(np.uint32))
+
+
+def test_stale_slot_is_rejected():
+    """A slot read under a later launch's flag, or with one word still
+    holding an earlier launch's flag (8-byte words arrive in any order),
+    does not count; once every word carries the flag it does."""
+    rng = np.random.default_rng(5)
+    for jc in range(W):
+        key, vals = _random_candidate(rng, jc, False)
+        words = pack_slot(key, vals, jc, 41)
+        assert unpack_slot(words, jc, 42) is None
+        for i in range(len(words)):
+            mixed = words.copy()
+            mixed[i] = pack_slot(key ^ 1, vals, jc, 40)[i]
+            assert unpack_slot(mixed, jc, 41) is None
+        assert unpack_slot(words, jc, 41)[0] == key
+
+
+def test_flag_wraps_from_the_last_past_zero():
+    """The launch count wraps from 2^32 - 1 past 0 to 1: a slot written
+    under flag 2^32 - 1 is stale under the next flag (and the other way
+    round), and the zeroed scratch (flag 0) never reads as current."""
+    assert next_flag(MASK32 - 1) == MASK32
+    assert next_flag(MASK32) == 1
+    assert next_flag(0) == 1
+    vals = np.arange(W, dtype=np.float32)
+    key = _bits(vals[0]) << 32 | 3
+    last = pack_slot(key, vals, 0, MASK32)
+    first = pack_slot(key, vals, 0, next_flag(MASK32))
+    assert unpack_slot(last, 0, next_flag(MASK32)) is None
+    assert unpack_slot(first, 0, MASK32) is None
+    assert unpack_slot(first, 0, next_flag(MASK32))[0] == key
+    zeroed = np.zeros(2 * SLOT_CHUNKS, dtype=np.uint64)
+    assert all(unpack_slot(zeroed, 0, next_flag(x)) is None for x in (0, MASK32 - 1, MASK32))
+
+
+@pytest.mark.parametrize("quant16", [True, False], ids=["quant16", "exact"])
+def test_record_reduction_through_slots(quant16):
+    """Every G = 1..132: an earlier launch (G = 132, 16 columns) leaves its
+    slots in the scratch; this launch writes each block's candidate for
+    column j = 9 (jc = 1) under the next flag into the same area, laid out
+    by its own G.  Read back through the mirror, every slot of this launch
+    is current, the words the earlier launch left elsewhere are not, and
+    the reduction of the keys picks the plain pivot row's block, whose
+    slot gives the pivot value and later strip values (ties in |value|,
+    frozen and dead rows)."""
+    m, j, jc = 4099, 9, 1
+    rng = np.random.default_rng(17 + quant16)
+    strip = (rng.integers(-6, 7, (m, W)) * 0.25).astype(np.float32)
+    strip[rng.random((m, W)) < 0.3] *= 1.0 + 2.0 ** -12   # equal under quant16 only
+    pos = rng.permutation(m).astype(np.int64)
+    pos[rng.random(m) < 0.1] = SENT
+    d = m // 3
+    keys = _keys(strip[:, jc], pos, d, quant16)
+    want = _plain_pivot_row(strip[:, jc], pos, d, quant16)
+    old_flag = MASK32                      # the earlier launch's, so this one's wraps
+    flag = next_flag(old_flag)
+    for g_max in range(1, 133):
+        area = np.zeros(2 * 16 * SLOT_CHUNKS * 132, dtype=np.uint64)
+        for jo in range(16):
+            for b in range(132):
+                area[slot_words(jo, jo % W, 132, b)] = pack_slot(
+                    int(rng.integers(1, 2**62)), strip[b], jo % W, old_flag)
+        bkeys, brow = block_candidates(keys, g_max)
+        g = len(bkeys)
+        written = np.zeros(area.shape, dtype=bool)
+        for b in range(g):
+            at = slot_words(j, jc, g, b)
+            area[at] = pack_slot(int(bkeys[b]), strip[brow[b]], jc, flag)
+            written[at] = True
+        assert not any(int(w) >> 32 == flag for w in area[~written])
+        got = [unpack_slot(area[slot_words(j, jc, g, b)], jc, flag) for b in range(g)]
+        assert all(x is not None for x in got)
+        key, blk = warp_reduction(np.array([x[0] for x in got], dtype=np.uint64))
+        assert key == keys.max() and brow[blk] == want, g_max
+        pivot = _bits(strip[want, jc]) & (0xFFFF0000 if quant16 else MASK32)
+        assert _bits(got[blk][1]) == pivot, g_max
+        assert np.array_equal(got[blk][2], strip[want, jc + 1:]), g_max
