@@ -1,0 +1,5 @@
+"""npv_roofline.n16384: :func:`benchmark_torch.masked_work.npv_roofline`,
+kernel 8's share of its roofline, in the masked n = 16384 cell (moves
+tflops.n16384)."""
+
+from benchmark_torch.masked_work import npv_roofline as read  # noqa: F401

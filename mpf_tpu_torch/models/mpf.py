@@ -325,40 +325,45 @@ def _inner_panel_step(slab, perm, piv_all, info, kk: int, jj0: int, rp: int, pol
     diagonal is at slab row / column ``kk + jj0`` / ``jj0``).  Returns
     ``(perm, info)``: the block column's composed row map and the first
     zero pivot (global, 1-based); ``piv_all`` gets the panel's global
-    0-based pivots in place.  L21, the U12 inside the block column and
-    their update are the ``mpf.update`` stage."""
+    0-based pivots in place.  Four stages: ``mpf.prepivot`` (the panel
+    cast and kernel 7), ``mpf.swap`` (the slab's LASWP), ``mpf.npv`` (the
+    diagonal block's no-pivot LU) and ``mpf.update`` (L21, the U12 inside
+    the block column and their update)."""
     _lib.panels["masked"] += 1
     n, bc = slab.shape
     dev = slab.device
     j0 = kk + jj0
     if pivot:
-        panel = slab[:, jj0:jj0 + rp]
-        if panel_kernel is None:
-            if policy.saturate_panel:
-                panel = cast_to_panel(panel, policy).contiguous()
-            piv, _, perm, src = hgetf2_panel_swaps(panel, j0, perm,
-                                                   panel_dtype=policy.panel)
-        else:
-            piv, pperm, perm = panel_kernel(cast_to_panel(panel, policy), row_offset=j0,
-                                            prev_perm=perm)
-            src = None
-        # LASWP over the slab: the <= 2 rp rows that can move
-        cand = torch.cat([j0 + torch.arange(rp, dtype=torch.int32, device=dev),
-                          piv.to(torch.int32)])
-        if src is None:
-            src = pperm[cand.long()]
-        laswp_apply(slab, cand, src)
-        piv_all[jj0:jj0 + rp] = piv
+        with _lib.span("mpf.prepivot"):
+            panel = slab[:, jj0:jj0 + rp]
+            if panel_kernel is None:
+                if policy.saturate_panel:
+                    panel = cast_to_panel(panel, policy).contiguous()
+                piv, _, perm, src = hgetf2_panel_swaps(panel, j0, perm,
+                                                       panel_dtype=policy.panel)
+            else:
+                piv, pperm, perm = panel_kernel(cast_to_panel(panel, policy), row_offset=j0,
+                                                prev_perm=perm)
+                src = None
+            # LASWP over the slab: the <= 2 rp rows that can move
+            cand = torch.cat([j0 + torch.arange(rp, dtype=torch.int32, device=dev),
+                              piv.to(torch.int32)])
+            if src is None:
+                src = pperm[cand.long()]
+        with _lib.span("mpf.swap"):
+            laswp_apply(slab, cand, src)
+            piv_all[jj0:jj0 + rp] = piv
     # no-pivot LU of the diagonal block, with its inverses: kernel 8 for
     # fp32 storage, PyTorch ops for bf16 (the JAX package's XLA ops)
-    diag = slab[j0:j0 + rp, jj0:jj0 + rp]
-    if slab.dtype == torch.float32:
-        lu, linv, uinv, info_k = getf2_npv_inv_block(diag)
-    else:
-        lu, info_k = getf2_npv(diag)
-        linv, uinv = unit_lower_inv(lu), upper_inv(lu)
-    info = torch.where((info == 0) & (info_k > 0), info_k + j0, info)
-    slab[j0:j0 + rp, jj0:jj0 + rp] = lu
+    with _lib.span("mpf.npv"):
+        diag = slab[j0:j0 + rp, jj0:jj0 + rp]
+        if slab.dtype == torch.float32:
+            lu, linv, uinv, info_k = getf2_npv_inv_block(diag)
+        else:
+            lu, info_k = getf2_npv(diag)
+            linv, uinv = unit_lower_inv(lu), upper_inv(lu)
+        info = torch.where((info == 0) & (info_k > 0), info_k + j0, info)
+        slab[j0:j0 + rp, jj0:jj0 + rp] = lu
     e, ce = j0 + rp, jj0 + rp
     w = slab.dtype
     with _lib.span("mpf.update"):

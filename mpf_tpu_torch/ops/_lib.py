@@ -21,10 +21,11 @@ call counter (bumped by the plain version itself), so a run can show which
 path it took; the block-column loop counts its block columns by path and
 its r-panels.
 
-:func:`span` names a stage of the block-column loop (``mpf.panel``,
-``mpf.update``, ``mpf.exchange``, ``mpf.u12``, ``mpf.trailing``) for
-``torch.profiler``: while a profiler records, it is a
-``record_function`` range, on the profiler's clock beside the device
+:func:`span` names a stage of the block-column loop (``mpf.panel``, with
+``mpf.update`` inside it and, on the masked path, ``mpf.prepivot``,
+``mpf.swap`` and ``mpf.npv`` beside it; ``mpf.exchange``, ``mpf.u12``,
+``mpf.trailing``) for ``torch.profiler``: while a profiler records, it is
+a ``record_function`` range, on the profiler's clock beside the device
 activity, and each device operation launched inside it is correlated with
 it; otherwise it is one shared no-op context.
 """

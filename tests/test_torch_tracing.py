@@ -3,10 +3,12 @@ driver route, on the CPU at n = 256 (block 64, r = 32: 4 block columns of
 2 r-panels).
 
 Under ``torch.profiler`` each stage is a ``record_function`` range: the
-counts below follow from the route and the shape, ``mpf.update`` sits in
+counts below follow from the route and the shape, ``mpf.update`` (and on
+the masked path ``mpf.prepivot``, ``mpf.swap`` and ``mpf.npv``) sits in
 ``mpf.panel``, and every operator of the factorization but the set-up
-before the loop lies inside a stage.  With no profiler recording no range
-is built, and the factors are the same bits either way."""
+before the loop lies inside a stage; on the masked path every operator of
+an r-panel lies in one of its four stages.  With no profiler recording no
+range is built, and the factors are the same bits either way."""
 
 import collections
 import functools
@@ -30,18 +32,31 @@ DEFER_SETUP = {"aten::arange": 3, "aten::zeros": 1, "aten::empty": 1, "aten::sli
 #: the pair layout's (n, n) view of the (n/2, 2, n) input
 PAIRS_SETUP = dict(SETUP, **{"aten::view": 1})
 
+#: the stages of a block column that sit inside its ``mpf.panel``
+PANEL_STAGES = ("mpf.update", "mpf.prepivot", "mpf.swap", "mpf.npv")
+#: a masked block column's own operators in ``mpf.panel``, outside its
+#: panels' stages: ``perm`` and ``piv_all`` (arange, add), ``info`` (zeros),
+#: the ``ipiv`` write (slice, add, copy_) and the ``info`` merge
+MASKED_OWN = {"aten::arange": 2, "aten::add": 2, "aten::zeros": 1, "aten::slice": 2,
+              "aten::copy_": 1, "aten::eq": 1, "aten::gt": 1, "aten::__and__": 1,
+              "aten::where": 1}
+#: the masked path's stages a pivoted r-panel opens
+MASKED = dict(prepivot=NPANELS, swap=NPANELS, npv=NPANELS)
+
 #: route -> (policy, options, path, setup, stage counts).  Updates follow
 #: every block column but the last (3); the lookahead driver splits the
 #: first two at the next block column's edge (3 narrow + 2 wide); the
 #: superblock driver (S = 128) runs a mid update in block columns 0 and 2
 #: and one far update; the deferred exchange (groups of 2) adds a flush a
-#: group to the 4 exchanges; an unpivoted block column exchanges no rows.
+#: group to the 4 exchanges; an unpivoted block column exchanges no rows,
+#: and its r-panels search no pivots and swap no rows.
 ROUTES = {
     "fused_mpf_bf16": (T.MPF_BF16, {}, "fused", SETUP, dict(exchange=4, u12=3, trailing=3)),
     "fused_all_bf16": (T.ALL_BF16, {}, "fused", SETUP, dict(exchange=4, u12=3, trailing=3)),
-    "masked_mpf_fp16": (T.MPF_FP16, {}, "masked", SETUP, dict(exchange=4, u12=3, trailing=3)),
+    "masked_mpf_fp16": (T.MPF_FP16, {}, "masked", SETUP,
+                        dict(exchange=4, u12=3, trailing=3, **MASKED)),
     "masked_unpivoted": (T.MPF_BF16, {"pivot": False}, "masked", SETUP,
-                         dict(exchange=0, u12=3, trailing=3)),
+                         dict(exchange=0, u12=3, trailing=3, npv=NPANELS)),
     "lookahead": (T.MPF_BF16, {"lookahead": True}, "fused", SETUP,
                   dict(exchange=4, u12=5, trailing=5)),
     "deferred": (T.MPF_BF16, {"defer": 2}, "fused", DEFER_SETUP,
@@ -81,26 +96,33 @@ def _factor(route, a):
     return TM.mpf_factorize_inplace(a, r=R, policy=pol, block=BLOCK, **opts)
 
 
-def _has_span_ancestor(ev) -> bool:
+def _span_of(ev):
+    """The name of the innermost stage span around ``ev``, or None."""
     p = ev.cpu_parent
     while p is not None:
         if p.name.startswith("mpf."):
-            return True
+            return p.name
         p = p.cpu_parent
-    return False
+    return None
+
+
+def _has_span_ancestor(ev) -> bool:
+    return _span_of(ev) is not None
 
 
 @functools.lru_cache(maxsize=None)
 def _traced(route):
     """The route factored once under the profiler and once without it:
-    ``(traced result, untraced result, events, counters of the traced run)``."""
+    ``(traced result, untraced result, events, counters of the traced run,
+    its kernel launches and plain calls)``."""
     _lib.reset_counts()
     a = _matrix(route)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         on = _factor(route, a)
     counts = (dict(_lib.block_columns), dict(_lib.panels))
+    calls = (dict(_lib.launches), dict(_lib.plain_calls))
     off = _factor(route, _matrix(route))
-    return on, off, list(prof.events()), counts
+    return on, off, list(prof.events()), counts, calls
 
 
 @pytest.mark.parametrize("route", ROUTES)
@@ -112,7 +134,7 @@ def test_span_tree(route):
     assert collections.Counter(e.name for e in spans) == {
         f"mpf.{k}": v for k, v in want.items() if v}
     for e in spans:
-        if e.name == "mpf.update":
+        if e.name in PANEL_STAGES:
             assert e.cpu_parent is not None and e.cpu_parent.name == "mpf.panel"
         else:  # the stages of a block column do not nest in one another
             assert not _has_span_ancestor(e), e.name
@@ -143,6 +165,31 @@ def test_block_column_counters(route):
     _lib.reset_counts()
     assert _lib.block_columns == {"fused": 0, "masked": 0}
     assert _lib.panels == {"fused": 0, "masked": 0}
+
+
+@pytest.mark.parametrize("route", ["masked_mpf_fp16", "masked_unpivoted"])
+def test_masked_panel_lies_in_its_stages(route):
+    """Of the operators in ``mpf.panel`` and in no stage inside it, none is
+    an r-panel's: they are each block column's own set-up and ``ipiv`` /
+    ``info`` writes, the same in every block column."""
+    events = _traced(route)[2]
+    own = [e for e in events if e.name.startswith("aten::") and _span_of(e) == "mpf.panel"
+           and not e.cpu_parent.name.startswith("aten::")]
+    assert collections.Counter(e.name for e in own) == {k: v * NBC for k, v in MASKED_OWN.items()}
+
+
+@pytest.mark.parametrize("route", ["masked_mpf_fp16", "masked_unpivoted"])
+def test_masked_kernel_calls(route):
+    """Per factorization on the CPU: kernel 7 (``hgetf2``) and kernel 8
+    (``npv_inv``) once an r-panel, kernel 9 (``laswp``) once a pivoted
+    r-panel on the slab and once for each side of a block column with
+    columns there (1 + 2 + 2 + 1); plain versions only, no launch."""
+    launches, plain = _traced(route)[4]
+    pivot = ROUTES[route][1].get("pivot", True)
+    assert plain["hgetf2"] == (NPANELS if pivot else 0)
+    assert plain["npv_inv"] == NPANELS
+    assert plain["laswp"] == (NPANELS + 2 * NBC - 2 if pivot else 0)
+    assert not any(launches.values())
 
 
 @pytest.mark.parametrize("route", ["fused_mpf_bf16", "masked_mpf_fp16", "lookahead",
