@@ -46,7 +46,10 @@ Phases, one line each:
      several seeds, printing the largest share of that bound used; frozen
      rows and the columns left of the panel exact, and a copy without the
      update pass shown to fail; kernel 6's bf16-C instance's TF/s and share
-     of the bf16 peak printed;
+     of the bf16 peak printed; kernel 6's two bf16-C instances (C through
+     shared memory, the wrapper's choice; C in registers) bitwise equal at
+     15360^2 x 1024 and timed in turns there and at 64512^2 x 1024, C
+     through shared memory required faster than C in registers at 15360;
   3. the fused path: mpf_factorize at n = 16384, MPF_BF16, r = 128 on the
      HPL-AI matrix and on the uniform (pivot-heavy) matrix: device fp64
      oracle (nbe <= 1e-3), perm consistent with ipiv, kernels 1-6 launched
@@ -58,9 +61,12 @@ Phases, one line each:
      identity, nbe <= 1e-5);
   5. ALL_BF16 (bf16 working storage) on the fused path at n = 16384 on both
      matrices: device oracle (nbe <= 5e-2), the exact launch counts of
-     kernels 1, 2, 12, 4, 5, 6 and no other, median of 3 beside phase 3's;
+     kernels 1, 2, 12, 4, 5, 6 and no other, every launch of kernel 6 with
+     C through shared memory (``_lib.trailing_instances``), median of 3
+     beside phase 3's;
   5b. ALL_BF16 at n = 65536 (HPL-AI made on the card in bf16): one timed
-     factorization, launch counts, oracle, peak device memory;
+     factorization, launch counts (kernel 6's by instance, as in 5),
+     oracle, peak device memory;
   5c. ALL_BF16 masked at n = 4096, r = 48, block 1000 (uniform): kernels 7
      and 9 launched, kernel 8 not;
   5d. ALL_BF16 pivot=False at n = 4096 (HPL-AI): ipiv the identity;
@@ -319,8 +325,8 @@ def main() -> int:
         panel_apply_update_trim, panel_apply_update_trim_plain,
         rowblock_assemble, rowblock_assemble_plain, rows_gather, rows_gather_plain,
         rows_scatter_from_band, rows_scatter_from_band_plain, rows_scatter_inplace,
-        rows_scatter_inplace_plain, trailing_gemm_sub, trailing_gemm_sub_plain, upd_wide,
-        upd_wide_plain)
+        rows_scatter_inplace_plain, _trailing_launch, trailing_gemm_sub,
+        trailing_gemm_sub_plain, trailing_staged, upd_wide, upd_wide_plain)
     from mpf_tpu_torch.ops.pair3d import (
         as_matrix, band_write_rows, band_write_rows_plain, slab_extract, slab_extract_plain,
         slab_writeback, slab_writeback_plain, trailing_sub3, u12_transform, u12_transform_plain)
@@ -1129,7 +1135,51 @@ def main() -> int:
     tf6b = rate("k6 bf16 operands, bf16 C", 2 * mt * mt * bc, ms, lib6b)
     record_bf16("trailing_sub", err6b, ms, pms,
                 bound(4 * mt * mt + 2 * 2 * mt * bc, 0, 2 * mt * mt * bc), lib6b, tflops=tf6b)
-    del a_k, a_p, l21, u12, c6b, hpl_b, slab0_b, uni_b
+    # kernel 6's bf16-C instances: C through shared memory (the wrapper's
+    # choice for every ALL_BF16 trailing block; four A/B stages, one 32 KB
+    # half-tile slot) and C in registers (four stages): bitwise equal at
+    # 15360^2 x 1024, then timed in turns there and at 64512^2 x 1024 (phase
+    # 5b's first update); the first faster than the last
+    insts6 = {"staged": "4 stages + 32 KB C slot", "registers": "4 stages, C in registers"}
+    outs6 = {}
+    for inst in insts6:
+        z = hpl_b.clone()
+        _trailing_launch(z[e:, e:], l21, u12, inst)
+        outs6[inst] = z
+    same6 = all(torch.equal(z, outs6["registers"]) for z in outs6.values())
+    del outs6, z
+
+    def k6_turns(mk, c, l21_, u12_, reps, rounds):
+        """Mean ms of each instance on C = ``c``, in turns; TF/s printed."""
+        t = {inst: [] for inst in insts6}
+        for _ in range(rounds):
+            for inst in [*insts6, *reversed(insts6)]:
+                t[inst].append(event_ms(lambda: _trailing_launch(c, l21_, u12_, inst), reps))
+        means = {inst: sum(v) / len(v) for inst, v in t.items()}
+        for inst, v in t.items():
+            rate(f"k6 bf16 C {mk}, {inst} ({insts6[inst]}), turns "
+                 + "/".join(f"{x:.4f}" for x in v), 2 * c.shape[0] * c.shape[1] * bc,
+                 means[inst], None)
+        return means
+
+    staged_ok = trailing_staged(a_k[e:, e:])
+    k6c = {"m15360": k6_turns("m15360", a_k[e:, e:], l21, u12, 10, 2)}
+    del a_k, a_p, c6b
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(17)
+    mb = BIG_N - bc
+    big6 = torch.rand((BIG_N, BIG_N), generator=gen, device=dev, dtype=BF) - 0.5
+    l21_b = torch.rand((mb, bc), generator=gen, device=dev, dtype=BF) - 0.5
+    u12_b = torch.rand((bc, mb), generator=gen, device=dev, dtype=BF) - 0.5
+    staged_ok = staged_ok and trailing_staged(big6[bc:, bc:])
+    k6c["m64512"] = k6_turns("m64512", big6[bc:, bc:], l21_b, u12_b, 3, 1)
+    del big6, l21_b, u12_b
+    torch.cuda.empty_cache()
+    faster6 = k6c["m15360"]["staged"] < k6c["m15360"]["registers"]
+    phase("k6_bf16c_instances", same6 and staged_ok and faster6, bitwise_equal=same6,
+          staged_is_the_wrappers_choice=staged_ok, staged_faster_at_m15360=faster6,
+          **{f"{mk}_{inst}_ms": f"{v:.4f}" for mk, d in k6c.items() for inst, v in d.items()})
+    del l21, u12, hpl_b, slab0_b, uni_b
     torch.cuda.empty_cache()
 
     # ---------------- phase 2d: kernels 13 and 11 vs plain -----------------
@@ -1749,9 +1799,11 @@ def main() -> int:
         launched = dict(_lib.launches)
         plain = dict(_lib.plain_calls)
         copies = _lib.copies["gemm_operand"]
+        inst5 = dict(_lib.trailing_instances)
         bf16_counts = bf16_counts or launched
         counters_ok = (not any(plain.values())
-                       and all(launched[k] == want5.get(k, 0) for k in _lib.KERNELS))
+                       and all(launched[k] == want5.get(k, 0) for k in _lib.KERNELS)
+                       and inst5["staged"] == launched["trailing_sub"])
         rep5 = check_factorization_device(a0, res.lu, res.ipiv, nbe_tol=NBE_TOL_BF16)
         perm = res.perm.long()
         is_perm = torch.equal(torch.sort(perm).values, torch.arange(n, device=dev))
@@ -1765,6 +1817,7 @@ def main() -> int:
               n=n, policy="all_bf16", r=r, nbe=f"{rep5.normwise_backward_err:.3e}",
               max_abs=f"{rep5.max_abs_err:.3e}", perm_ok=is_perm and consistent,
               info=int(res.info), launches=json.dumps(launched, separators=(",", ":")),
+              trailing_instances=json.dumps(inst5, separators=(",", ":")),
               plain_calls=sum(plain.values()), operand_copies=copies,
               first_run_s=f"{first_s:.3f}", median_ms=f"{med * 1e3:.2f}",
               runs_ms="/".join(f"{t * 1e3:.2f}" for t in runs), mpf_bf16_median_ms=f"{bf16_policy_ms[corpus]:.2f}",
@@ -1797,9 +1850,11 @@ def main() -> int:
     fac_peak = torch.cuda.max_memory_allocated()
     launched = dict(_lib.launches)
     copies = _lib.copies["gemm_operand"]
+    inst5b = dict(_lib.trailing_instances)
     want5b = fused_counts(nb, r, bc, bf16=True)
     counters_ok = (not any(_lib.plain_calls.values())
-                   and all(launched[k] == want5b.get(k, 0) for k in _lib.KERNELS))
+                   and all(launched[k] == want5b.get(k, 0) for k in _lib.KERNELS)
+                   and inst5b["staged"] == launched["trailing_sub"])
     lu, ipiv, info = res.lu, res.ipiv, int(res.info)
     perm5b = res.perm                # 5b's pivots and row map, the reference of 7b
     finite = bool(torch.isfinite(lu).all())
@@ -1812,6 +1867,7 @@ def main() -> int:
           rep5b.ok and counters_ok and finite and info == 0 and copies == 0,
           n=nb, policy="all_bf16", r=r, nbe=f"{rep5b.normwise_backward_err:.3e}",
           info=info, launches=json.dumps(launched, separators=(",", ":")), operand_copies=copies,
+          trailing_instances=json.dumps(inst5b, separators=(",", ":")),
           ms=f"{big_ms:.2f}", tflops=f"{tflops(nb, big_ms / 1e3):.2f}",
           generate_s=f"{gen_s:.2f}", resident_gib_before=f"{resident / 2**30:.2f}",
           peak_gib_factorization=f"{fac_peak / 2**30:.2f}",

@@ -8,19 +8,22 @@
 // What bounds it on the H100: at the factorization's trailing shapes (K =
 // 1024, M = N up to 64512) the bf16 products are tensor-core bound (2 M N K
 // flops at 989 TFLOP/s) and the read-modify-write of C is bytes bound (8 or
-// 4 bytes an entry at 3.35 TB/s); the two are of the same order, so the
-// design keeps the tensor cores fed from a ring of tiles and lets C's
-// read-modify-write of one tile overlap the next tile's loads.
+// 4 bytes an entry at 3.35 TB/s).  Over a whole factorization C's bytes
+// take about half the products' time, so they cost nothing only where they
+// move while the tensor cores work: a tile's C read and written between
+// two tiles' products stalls the tensor cores for it (64 + 64 KB a bf16
+// tile, ~5 us at an SM's share of the bandwidth against a ~11 us main
+// loop), and every SM reaches that point at about the same time.
 //
 // Design (one routine, run by kernel 6's launch, which kernel 12's update
 // pass shares, and inside kernel 13's cooperative launch):
 // - TMA tile loads: 2-D tensor maps with 128-byte swizzle, encoded on the
 //   host with the logical sizes as dims, so TMA zero-fills the ragged edges
 //   of M, N and K and never reads a column past K of an A that is a view.
-// - A ring of kStages stages in dynamic shared memory (128 x 64 of A and
+// - A ring of kSt stages in dynamic shared memory (128 x 64 of A and
 //   64 x 256 of B a stage), one `full` and one `empty` mbarrier a stage.
 // - Warp specialisation: warpgroup 0 is the producer (one thread issues
-//   the loads; the warpgroup gives registers up with setmaxnreg.dec);
+//   the A/B loads; the warpgroup gives registers up with setmaxnreg.dec);
 //   warpgroups 1 and 2 are consumers, each running wgmma.mma_async
 //   m64n256k16 (bf16 in, fp32 accumulators) on 64 rows of the 128 x 256
 //   tile, A K-major and B N-major (wgmma's transpose bit) from
@@ -29,25 +32,39 @@
 //   order (kGroupM tile rows at a time, so neighbouring blocks share their
 //   B panels in L2); the producer runs into the next tile while the
 //   consumers run the epilogue.
-// - The epilogue from registers, C read and written once: the lanes of
-//   each quad trade accumulators with shuffles (one step for fp32 C, two
-//   for bf16 C) so that each lane holds adjacent entries of one row, then
-//   subtract with __fsub_rn and store with 16-byte accesses where the
-//   address allows (single entries otherwise, so any ldc and any base
-//   alignment work): each warp instruction moves 16 rows of 32 bytes, and
-//   a batch's loads are issued together.  (Measured on the card: with the
-//   fragment's own 4- and 8-byte accesses the epilogue, not the products,
-//   was the bottleneck; PERF.md section 6.)
-// - An instance for bf16 C with C through shared memory (kSmemC): the
-//   producer loads each tile's C by TMA beside its A and B into one of two
-//   C slots, the consumers subtract there (swizzled, conflict-free 4-byte
-//   accesses), and a storing thread writes the tile back by TMA, so C's
-//   read-modify-write runs behind the products of the next tiles.  It has
-//   two A/B stages (K = 128 is two steps) to make room for the slots.
+// - Two epilogue placements, chosen at compile time (run's kCH):
+//   * C through shared memory (kCH > 0 half-tile slots; bf16 C at a
+//     16-byte base with a row stride and a width that are multiples of 16
+//     bytes, which TMA reads and writes in place): a C thread of the
+//     producer warpgroup loads each consumer warpgroup's 64 x 256 half of
+//     the tile by TMA (boxes of 64 x 64, 128-byte swizzle) into a slot,
+//     stores it back by TMA once that warpgroup has subtracted there
+//     (ldmatrix / stmatrix on the swizzled rows, conflict-free; __fsub_rn,
+//     one rounding), and loads the half that takes the slot next as soon
+//     as the store has read it.  So C's loads and stores run beside the
+//     products, and the tensor cores wait for the subtract and for what
+//     of C's traffic the slots cannot hide.  The ring layout is per
+//     instance: kernel 6 (K = 1024) four A/B stages and one 32 KB slot that
+//     the two consumer warpgroups' halves take in turn (the first half
+//     lands during the main loop, the second while the first warpgroup
+//     runs ahead into the next tile): the ring's depth sets the pace at K =
+//     1024, and three stages with a 64 KB slot, measured beside it, were
+//     slower (PERF.md section 6 row 6; two stages with two slots starved);
+//     kernel 12's update pass (K = r <= 128, bound by C's bytes) two stages
+//     and two 64 KB slots, one tile's C streaming in while another's
+//     streams out.
+//   * C in registers (kCH = 0; fp32 C, other bf16 C, kernel 13): the lanes
+//     of each quad trade accumulators with shuffles (one step for fp32 C,
+//     two for bf16 C) so that each lane holds adjacent entries of one row,
+//     then subtract with __fsub_rn and store with 16-byte accesses where
+//     the address allows (single entries otherwise, so any ldc and any base
+//     alignment work): each warp instruction moves 16 rows of 32 bytes, and
+//     a batch's loads are issued together.  Four A/B stages.
 // - No split-K: one block sums every output entry over all of K in one
-//   fixed order (ascending 64-deep steps, each four k16 products), so
-//   kernel 13 is bitwise kernel 6 and a taller or shifted C gives the same
-//   entries.
+//   fixed order (ascending 64-deep steps, each four k16 products), and both
+//   placements subtract the same fp32 sum with one rounding, so the two
+//   are bitwise equal, kernel 13 is bitwise kernel 6, and a taller or
+//   shifted C gives the same entries.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (libcuda is reached through the runtime)
@@ -59,7 +76,6 @@ namespace gemm {
 namespace sm90 {
 
 constexpr int kBM = 128, kBN = 256, kBK = 64;
-constexpr int kStages = 4;
 constexpr int kConsumers = 2;                        // warpgroups, 64 tile rows each
 constexpr int kThreads = 128 * (1 + kConsumers);
 constexpr int kGroupM = 8;                           // tile rows of one raster group
@@ -67,18 +83,33 @@ constexpr int kBatch = 8;                            // epilogue: 16-byte loads 
 constexpr uint32_t kABytes = kBM * kBK * 2;          // 16 KB of A a stage
 constexpr uint32_t kBoxBytes = kBK * 64 * 2;         // one 64-column box of B: 8 KB
 constexpr uint32_t kBBytes = (kBN / 64) * kBoxBytes; // 32 KB of B a stage
-// 1024 bytes of alignment slack (the swizzle atom), the ring, the barriers
-constexpr int kSmem = 1024 + kStages * (kABytes + kBBytes) + 2 * kStages * 8;
-// The instance with C through shared memory (kSmemC, bf16 C only): a ring of
-// kStagesC A/B stages and kCSlots C tiles, each tile 2 x 4 boxes of 64 rows
-// x 64 columns with 128-byte swizzle; then the A/B ring's full and empty
-// barriers and the C slots' full, ready and empty barriers.
-constexpr int kStagesC = 2, kCSlots = 2;
-constexpr uint32_t kCBox = 64 * 64 * 2;               // 8 KB
-constexpr uint32_t kCBytes = 8 * kCBox;               // one 128 x 256 bf16 tile: 64 KB
-constexpr int kSmemBytesC = 1024 + kStagesC * (kABytes + kBBytes) + kCSlots * kCBytes +
-                            (2 * kStagesC + 3 * kCSlots) * 8;
-static_assert(kSmemBytesC <= 232448, "the shared-memory C instance must fit in one SM");
+constexpr uint32_t kCBox = 64 * 64 * 2;              // one 64 x 64 bf16 box of C: 8 KB
+constexpr uint32_t kCHalf = (kBN / 64) * kCBox;      // a consumer's 64 x 256 half: 32 KB
+// C barriers of a layout with `halves` half-tile slots: one full and one
+// ready barrier a slot, and at least one of each a consumer warpgroup
+__host__ __device__ constexpr int c_bars(int halves) {
+  return halves < kConsumers ? kConsumers : halves;
+}
+// dynamic shared memory of a ring of `stages` A/B stages and `halves` C
+// half-tile slots: 1024 bytes of alignment slack (the swizzle atom), the
+// ring, the slots, the A/B full and empty barriers, the C full and ready
+// barriers
+__host__ __device__ constexpr int smem_bytes(int stages, int halves) {
+  return 1024 + stages * (int)(kABytes + kBBytes) + halves * (int)kCHalf +
+         (2 * stages + (halves > 0 ? 2 * c_bars(halves) : 0)) * 8;
+}
+// C in registers: four stages
+constexpr int kStages = 4;
+constexpr int kSmem = smem_bytes(kStages, 0);
+// kernel 6's bf16-C instance, C through shared memory: four stages and one
+// 32 KB slot that the two consumer warpgroups' halves take in turn
+constexpr int kStages6 = 4, kHalves6 = 1;
+// kernel 12's update pass: two stages (K = 128 is two steps) and two 64 KB
+// slots
+constexpr int kStages12 = 2, kHalves12 = 4;
+static_assert(smem_bytes(kStages6, kHalves6) <= 232448 &&
+                  smem_bytes(kStages12, kHalves12) <= 232448,
+              "each C-through-shared-memory layout must fit in one SM");
 // registers a thread: the producer's, the consumers', and the count both
 // return to where the threads meet again after the tiles (kernel 13)
 constexpr int kProducerRegs = 40, kConsumerRegs = 232, kRejoinRegs = 160;
@@ -263,42 +294,48 @@ __device__ __forceinline__ void tile_origin(int t, int tiles_m, int tiles_n, int
 }
 
 // The whole routine, run by every thread of a kThreads-thread block with
-// kSmem bytes of dynamic shared memory (kSmemBytesC for the kSmemC instance);
-// blocks stride over the tiles.  kRejoin: every thread leaves with
-// kRejoinRegs registers, so code after it (kernel 13's exchange) runs on all
-// warps.  kSmemC (bf16 C): the producer also loads each tile's C by TMA
-// (tmC: boxes of 64 x 64, 128-byte swizzle) into one of two C slots
-// together with its A and B, the consumers subtract in shared memory, and a
-// storing thread of the producer warpgroup writes the tile back by TMA, so
-// one tile's C traffic overlaps the neighbouring tiles' products and
-// epilogues; the A/B ring has two stages (K = 128 is two of them).
-template <typename TC, bool kRejoin, bool kSmemC = false>
+// smem_bytes(kSt, kCH) bytes of dynamic shared memory; blocks stride over
+// the tiles.  kRejoin: every thread leaves with kRejoinRegs registers, so
+// code after it (kernel 13's exchange) runs on all warps.  kSt: the A/B
+// ring's stages.  kCH: C's half-tile slots (bf16 C; 0 keeps C in
+// registers).  With kCH > 0, half u = 2 lt + h of this block's tiles (h
+// the consumer warpgroup, lt the tile) lies in slot u % kCH and is counted
+// on full and ready barriers u % c_bars(kCH); the C thread (thread 32)
+// loads the first kCH halves, then for each group of halves stores them
+// (tmC: boxes of 64 x 64, 128-byte swizzle) once their warpgroups are done,
+// waits until the stores have read the slots, and loads into each slot the
+// half that takes it next: with one 64 KB slot the next tile's C is on its
+// way as its main loop starts, with one 32 KB slot the first half's is.
+template <typename TC, bool kRejoin, int kSt = kStages, int kCH = 0>
 __device__ __forceinline__ void run(const CUtensorMap* tmA, const CUtensorMap* tmB,
                                     const CUtensorMap* tmC, int M, int N, int K,
                                     TC* __restrict__ C, i64 ldc) {
-  static_assert(!kSmemC || sizeof(TC) == 2, "the shared-memory C instance is bf16 C only");
-  constexpr int kSt = kSmemC ? kStagesC : kStages;
+  constexpr bool kStagedC = kCH > 0;
+  static_assert(!kStagedC || sizeof(TC) == 2, "C through shared memory is bf16 C only");
+  constexpr int kSlots = kStagedC ? kCH : 1, kCBars = c_bars(kCH);
+  // halves stored between two waits for the stores' reads: a tile's two
+  // where two slots hold them, else one (its slot takes the next half)
+  constexpr int kGroup = kCH < kConsumers ? 1 : kConsumers;
   extern __shared__ uint8_t sm90_smem[];
   uint8_t* smem = sm90_smem + ((1024 - (tma::smem_addr(sm90_smem) & 1023)) & 1023);
   uint8_t* sA = smem;                                  // kSt x 128 x 64
   uint8_t* sB = smem + kSt * kABytes;                  // kSt x 4 boxes of 64 x 64
-  uint8_t* sC = sB + kSt * kBBytes;                    // kSmemC: kCSlots x 8 boxes
-  uint64_t* full = reinterpret_cast<uint64_t*>(sC + (kSmemC ? kCSlots * kCBytes : 0));
+  uint8_t* sC = sB + kSt * kBBytes;                    // kCH x 4 boxes of 64 x 64
+  uint64_t* full = reinterpret_cast<uint64_t*>(sC + kCH * kCHalf);
   uint64_t* empty = full + kSt;
-  uint64_t* cfull = empty + kSt;    // kSmemC: a slot's C has landed
-  uint64_t* cready = cfull + kCSlots;  // its new values are in shared memory
-  uint64_t* cempty = cready + kCSlots;  // its store has read them
+  uint64_t* cfull = empty + kSt;       // kStagedC: a half of C has landed
+  uint64_t* cready = cfull + kCBars;   // its new values are in shared memory
   if (threadIdx.x == 0) {
     for (int s = 0; s < kSt; ++s) {
       tma::mbar_init(&full[s], 1);               // the producer's arrive (+ the bytes)
       tma::mbar_init(&empty[s], kConsumers * 4);  // lane 0 of every consumer warp
     }
-    if constexpr (kSmemC)
-      for (int s = 0; s < kCSlots; ++s) {
-        tma::mbar_init(&cfull[s], 1);
-        tma::mbar_init(&cready[s], kConsumers * 4);
-        tma::mbar_init(&cempty[s], 1);              // the storing thread
+    if constexpr (kStagedC) {
+      for (int s = 0; s < kCBars; ++s) {
+        tma::mbar_init(&cfull[s], 1);   // the C thread's arrive (+ the bytes)
+        tma::mbar_init(&cready[s], 4);  // lane 0 of each warp of one consumer warpgroup
       }
+    }
     tma::fence_barrier_init();
   }
   __syncthreads();
@@ -313,27 +350,11 @@ __device__ __forceinline__ void run(const CUtensorMap* tmA, const CUtensorMap* t
     if (threadIdx.x == 0 && tiles > 0) {
       asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(tmA)) : "memory");
       asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(tmB)) : "memory");
-      if constexpr (kSmemC)
-        asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(tmC)) : "memory");
       int stage = 0;
       uint32_t phase = 0;
-      int lt = 0;  // this block's tile count
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++lt) {
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
         int m0, n0;
         tile_origin(t, tiles_m, tiles_n, m0, n0);
-        if constexpr (kSmemC) {
-          // C first: its slot frees when the tile two back is stored, before
-          // this tile's A/B stages free
-          const int slot = lt % kCSlots;
-          tma::mbar_wait(&cempty[slot], ((lt / kCSlots) & 1) ^ 1);  // the first use passes
-          tma::mbar_arrive_expect_tx(&cfull[slot], kCBytes);
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int j = 0; j < kBN / 64; ++j)
-              load_2d(sC + slot * kCBytes + (h * 4 + j) * kCBox, tmC, n0 + 64 * j, m0 + 64 * h,
-                      &cfull[slot]);
-        }
         for (int kb = 0; kb < kblocks; ++kb) {
           tma::mbar_wait(&empty[stage], phase ^ 1);  // the first round passes
           tma::mbar_arrive_expect_tx(&full[stage], kABytes + kBBytes);
@@ -348,25 +369,45 @@ __device__ __forceinline__ void run(const CUtensorMap* tmA, const CUtensorMap* t
           }
         }
       }
-    } else if (kSmemC && threadIdx.x == 32 && tiles > 0) {
-      // the storing thread: each tile's C back by TMA once both consumer
-      // warpgroups have written it, then its slot is released
-      int lt = 0;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++lt) {
-        int m0, n0;
-        tile_origin(t, tiles_m, tiles_n, m0, n0);
-        const int slot = lt % kCSlots;
-        tma::mbar_wait(&cready[slot], (lt / kCSlots) & 1);
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
+    }
+    if constexpr (kStagedC) {
+      if (threadIdx.x == 32 && tiles > 0) {
+        // the C thread: this block's halves in order (its grid is at most
+        // the tile count, so it has at least one tile)
+        asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(tmC)) : "memory");
+        const int units = 2 * ((tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1);
+        auto origin = [&](int u, int& m0, int& n0) {
+          tile_origin(blockIdx.x + (u >> 1) * gridDim.x, tiles_m, tiles_n, m0, n0);
+          m0 += 64 * (u & 1);
+        };
+        auto load_half = [&](int u) {
+          int m0, n0;
+          origin(u, m0, n0);
+          uint64_t* bar = &cfull[u % kCBars];
+          tma::mbar_arrive_expect_tx(bar, kCHalf);
 #pragma unroll
           for (int j = 0; j < kBN / 64; ++j)
-            store_2d(tmC, n0 + 64 * j, m0 + 64 * h, sC + slot * kCBytes + (h * 4 + j) * kCBox);
-        bulk_commit();
-        bulk_wait_read();
-        mbar_arrive(&cempty[slot]);
+            load_2d(sC + (u % kSlots) * kCHalf + j * kCBox, tmC, n0 + 64 * j, m0, bar);
+        };
+        for (int u = 0; u < kSlots && u < units; ++u) load_half(u);
+        for (int u0 = 0; u0 < units; u0 += kGroup) {
+#pragma unroll
+          for (int u = u0; u < u0 + kGroup; ++u) {
+            int m0, n0;
+            origin(u, m0, n0);
+            tma::mbar_wait(&cready[u % kCBars], (u / kCBars) & 1);
+#pragma unroll
+            for (int j = 0; j < kBN / 64; ++j)
+              store_2d(tmC, n0 + 64 * j, m0, sC + (u % kSlots) * kCHalf + j * kCBox);
+          }
+          bulk_commit();
+          bulk_wait_read();
+#pragma unroll
+          for (int u = u0; u < u0 + kGroup; ++u)
+            if (u + kSlots < units) load_half(u + kSlots);
+        }
+        bulk_wait();
       }
-      bulk_wait();
     }
     __syncwarp();
     if constexpr (kRejoin) setmaxnreg_inc<kRejoinRegs>();
@@ -412,33 +453,45 @@ __device__ __forceinline__ void run(const CUtensorMap* tmA, const CUtensorMap* t
       fence_operands(d);
       if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
 
-      if constexpr (kSmemC) {
-        // C in shared memory: box j / 8 of this warpgroup's half, row rl (+ 8
-        // i), 16-byte chunk j % 8 swizzled by the row's low bits (rl % 8 =
-        // lane / 4), 4 bytes (the fragment's two adjacent entries) a lane:
-        // the 8 rows of a warp instruction hit 8 different chunks, no bank
-        // conflict.  Rows and columns past M and N hold TMA's zeros and are
-        // clipped by the store.
-        const int slot = lt % kCSlots;
-        tma::mbar_wait(&cfull[slot], (lt / kCSlots) & 1);
-        uint8_t* cs = sC + slot * kCBytes + cw * 4 * kCBox;
-        const int rl = warp * 16 + (lane >> 2);
+      if constexpr (kStagedC) {
+        // C in shared memory: this warpgroup's half u of the tile.  Per pair
+        // of column chunks (j, j + 1) one ldmatrix.x4 brings the lane the
+        // four words of bf16 pairs that its fragment holds (rows lane / 4
+        // and + 8, columns 8j + 2 (lane % 4) and 8 (j + 1) + ...): lane l
+        // gives the address of row l % 8 of 8 x 8 matrix l / 8 (row half
+        // (l / 8) % 2, chunk j + l / 16), 16 bytes at chunk c ^ (row % 8)
+        // of its 128-byte swizzled row, so the 8 rows of a matrix hit 8
+        // different chunks, no bank conflict; stmatrix.x4 writes the four
+        // words back the same way.  Rows and columns past M and N hold TMA's
+        // zeros and are clipped by the store.
+        const int u = 2 * lt + cw;
+        tma::mbar_wait(&cfull[u % kCBars], (u / kCBars) & 1);
+        const uint32_t cs = tma::smem_addr(sC + (u % kSlots) * kCHalf);
+        const int r8 = lane & 7, q = lane >> 3;
+        const uint32_t row = cs + (warp * 16 + 8 * (q & 1) + r8) * 128;
 #pragma unroll
-        for (int j = 0; j < kBN / 8; ++j) {
-          uint8_t* box = cs + (j >> 3) * kCBox + (((j & 7) ^ (lane >> 2)) << 4) + 4 * (lane & 3);
+        for (int j = 0; j < kBN / 8; j += 2) {
+          const int jj = j + (q >> 1);
+          const uint32_t addr = row + (jj >> 3) * kCBox + (((jj & 7) ^ r8) << 4);
+          uint32_t w[4];
+          asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+                       : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
+                       : "r"(addr));
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            uint32_t* p = reinterpret_cast<uint32_t*>(box + (rl + 8 * i) * 128);
-            const uint32_t u = *p;
-            const float lo = __fsub_rn(__uint_as_float(u << 16), d[4 * j + 2 * i]);
-            const float hi = __fsub_rn(__uint_as_float(u & 0xffff0000u), d[4 * j + 2 * i + 1]);
-            *p = (uint32_t)__bfloat16_as_ushort(from_f32<__nv_bfloat16>(lo)) |
-                 (uint32_t)__bfloat16_as_ushort(from_f32<__nv_bfloat16>(hi)) << 16;
+          for (int k = 0; k < 4; ++k) {
+            // word k: chunk j + k / 2, row half k % 2: d[4 (j + k / 2) + 2 (k % 2) + c]
+            const int di = 4 * (j + (k >> 1)) + 2 * (k & 1);
+            const float lo = __fsub_rn(__uint_as_float(w[k] << 16), d[di]);
+            const float hi = __fsub_rn(__uint_as_float(w[k] & 0xffff0000u), d[di + 1]);
+            asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(w[k]) : "f"(hi), "f"(lo));
           }
+          asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};"
+                       ::"r"(addr), "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
+                       : "memory");
         }
         tma::fence_proxy_async();  // the writes, before the async-proxy store reads them
         __syncwarp();
-        if (lane == 0) mbar_arrive(&cready[slot]);
+        if (lane == 0) mbar_arrive(&cready[u % kCBars]);
         continue;  // the register epilogue below is the other instance's
       }
 
@@ -590,14 +643,15 @@ inline long long tile_count(int M, int N, int K) {
   return (long long)((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
 }
 
-// C = bf16(fp32(C) - A @ B) on the routine (defined in gemm_sub.cu, the one
-// translation unit that instantiates its kernels): kernel 6's bf16-C launch,
-// which kernel 12's update pass runs too.  smem_c takes the instance with C
-// through shared memory where C's base and row stride are multiples of 16
+// Kernel 12's update pass, C = bf16(fp32(C) - A @ B) on the routine (defined
+// in gemm_sub.cu, the one translation unit that instantiates its kernels,
+// as trailing_kernel<bf16, true>): smem_c takes its layout with C through
+// shared memory where C's base, row stride and width are multiples of 16
 // bytes (else the register epilogue, which reads C in place at any
-// alignment).  Returns cudaGetLastError() or the encode error.
-int launch_bf16c(int M, int N, int K, const void* A, i64 lda, const void* B, i64 ldb,
-                 __nv_bfloat16* C, i64 ldc, bool smem_c, cudaStream_t st);
+// alignment).
+// Returns cudaGetLastError() or the encode error.
+int launch_update(int M, int N, int K, const void* A, i64 lda, const void* B, i64 ldb,
+                  __nv_bfloat16* C, i64 ldc, bool smem_c, cudaStream_t st);
 
 }  // namespace sm90
 }  // namespace gemm

@@ -15,14 +15,18 @@
 // (gemm_ffma.cuh).
 //
 // Design: the bf16-operand instances (fp32 C, bf16 C) run the Hopper
-// routine of gemm_sm90.cuh (kernel 12's update pass runs its bf16-C launch,
-// launch_bf16c, too): TMA tile loads into an mbarrier ring, a
-// producer warpgroup and two wgmma consumer warpgroups, one persistent
-// block per SM, C read and written once per tile in the epilogue (the TPU
-// kernel's point: no separate product array and subtract pass).  The
-// fp32-operand instance runs the FFMA routine of gemm_ffma.cuh (128 x 128
-// tiles, 8 x 8 outputs a thread, a TMA ring on mbarriers), one block a
-// tile in the grouped raster order, two blocks an SM.  launch_gemm_sub also
+// routine of gemm_sm90.cuh as trailing_kernel<C, false> (kernel 12's update
+// pass runs it as trailing_kernel<bf16, true>, launch_update): TMA tile
+// loads into an mbarrier ring, a producer warpgroup and two wgmma consumer
+// warpgroups, one persistent block per SM, C read and written once per tile
+// in the epilogue (the TPU kernel's point: no separate product array and
+// subtract pass).  bf16 C that TMA can read and write in place goes through
+// shared memory (loaded by TMA beside the products, stored by TMA), any
+// other C stays in registers; the caller chooses by C's dtype and
+// alignment.  The fp32-operand instance runs the FFMA routine of
+// gemm_ffma.cuh (128 x 128 tiles, 8 x 8 outputs a thread, a TMA ring on
+// mbarriers), one block a tile in the grouped raster order, two blocks an
+// SM.  launch_gemm_sub also
 // serves the streaming panel update's masked update (panel_update.cu:
 // tile_mma with a row mask for bf16 operands, the FFMA routine with the row
 // mask for fp32).
@@ -92,56 +96,80 @@ int launch_gemm_sub(int mode, int M, int N, int K, const void* A, i64 lda,
 
 namespace sm90 {
 
-template <typename TC, bool kSmemC>
+// where a launch keeps C during its epilogue (mpf_trailing_sub's c_mode
+// less one for bf16 C): in registers, or through shared memory in the
+// launch's layout (kernel 6: kStages6 / kHalves6; kernel 12's update pass:
+// kStages12 / kHalves12)
+enum Epi : int { kEpiRegs = 0, kEpiStaged = 1 };
+
+// kUpdate: kernel 12's update pass (so the profiler tells it from kernel 6
+// by name); the epilogue placement is the launch's argument, each a
+// compile-time instance of run<> behind a uniform branch
+template <typename TC, bool kUpdate>
 __global__ void __launch_bounds__(kThreads, 1)
     trailing_kernel(const __grid_constant__ CUtensorMap tmA,
                     const __grid_constant__ CUtensorMap tmB,
                     const __grid_constant__ CUtensorMap tmC, int M, int N, int K,
-                    TC* __restrict__ C, i64 ldc) {
-  run<TC, false, kSmemC>(&tmA, &tmB, &tmC, M, N, K, C, ldc);
+                    TC* __restrict__ C, i64 ldc, int epi) {
+  if constexpr (sizeof(TC) == 2) {
+    if constexpr (kUpdate) {
+      if (epi == kEpiStaged) {
+        run<TC, false, kStages12, kHalves12>(&tmA, &tmB, &tmC, M, N, K, C, ldc);
+        return;
+      }
+    } else {
+      if (epi == kEpiStaged) {
+        run<TC, false, kStages6, kHalves6>(&tmA, &tmB, &tmC, M, N, K, C, ldc);
+        return;
+      }
+    }
+  }
+  run<TC, false>(&tmA, &tmB, &tmC, M, N, K, C, ldc);
 }
 
-// C (M x N) at a 16-byte base with a row stride that is a multiple of 16
-// bytes: TMA reads and writes it in place
-inline bool c_tma_ok(const void* C, i64 ldc, size_t es) {
-  return (reinterpret_cast<uintptr_t>(C) & 15) == 0 && (ldc * (i64)es) % 16 == 0;
+// C (M x N) at a 16-byte base with a row stride and a width N that are
+// multiples of 16 bytes: TMA reads and writes it in place (a store writes
+// whole 16-byte pieces of a row, so on the card it wrote the entries past a
+// ragged N up to the next 16 bytes)
+inline bool c_tma_ok(const void* C, int N, i64 ldc, size_t es) {
+  return (reinterpret_cast<uintptr_t>(C) & 15) == 0 && (ldc * (i64)es) % 16 == 0 &&
+         ((i64)N * (i64)es) % 16 == 0;
 }
 
-template <typename TC>
+// one launch of trailing_kernel<TC, kUpdate> with the epilogue epi; C
+// through shared memory takes bf16 C that c_tma_ok passes, else the call
+// returns cudaErrorInvalidValue
+template <typename TC, bool kUpdate>
 int launch(int M, int N, int K, const void* A, i64 lda, const void* B, i64 ldb, TC* C,
-           i64 ldc, bool smem_c, cudaStream_t st) {
+           i64 ldc, Epi epi, cudaStream_t st) {
   const long long tiles = tile_count(M, N, K);
   if (tiles == 0) return (int)cudaGetLastError();
   CUtensorMap ta, tb, tc;
   int err = encode_operands(&ta, &tb, M, N, K, A, lda, B, ldb);
   if (err) return err;
   memset(&tc, 0, sizeof(tc));
-  const void* kern = (const void*)trailing_kernel<TC, false>;
   int smem = kSmem;
-  if constexpr (sizeof(TC) == 2) {
-    if (smem_c && c_tma_ok(C, ldc, sizeof(TC))) {
-      // C's own map: boxes of 64 rows x 64 columns, both for the loads and
-      // for the stores
-      err = encode(&tc, C, M, N, ldc, 64);
-      if (err) return err;
-      kern = (const void*)trailing_kernel<TC, true>;
-      smem = kSmemBytesC;
-    }
+  if (epi != kEpiRegs) {
+    if (sizeof(TC) != 2 || !c_tma_ok(C, N, ldc, sizeof(TC))) return (int)cudaErrorInvalidValue;
+    // C's own map: boxes of 64 rows x 64 columns, both for the loads and
+    // for the stores
+    err = encode(&tc, C, M, N, ldc, 64);
+    if (err) return err;
+    smem = kUpdate ? smem_bytes(kStages12, kHalves12) : smem_bytes(kStages6, kHalves6);
   }
-  cudaError_t e = dyn_smem(kern, smem);
+  cudaError_t e = dyn_smem((const void*)trailing_kernel<TC, kUpdate>, smem);
   if (e != cudaSuccess) return (int)e;
   const int nsm = sm_count();
   const int grid = (int)(tiles < nsm ? tiles : nsm);
-  if (smem == kSmem)
-    trailing_kernel<TC, false><<<grid, kThreads, smem, st>>>(ta, tb, tc, M, N, K, C, ldc);
-  else if constexpr (sizeof(TC) == 2)
-    trailing_kernel<TC, true><<<grid, kThreads, smem, st>>>(ta, tb, tc, M, N, K, C, ldc);
+  trailing_kernel<TC, kUpdate><<<grid, kThreads, smem, st>>>(ta, tb, tc, M, N, K, C, ldc,
+                                                             (int)epi);
   return (int)cudaGetLastError();
 }
 
-int launch_bf16c(int M, int N, int K, const void* A, i64 lda, const void* B, i64 ldb,
-                 __nv_bfloat16* C, i64 ldc, bool smem_c, cudaStream_t st) {
-  return launch(M, N, K, A, lda, B, ldb, C, ldc, smem_c, st);
+int launch_update(int M, int N, int K, const void* A, i64 lda, const void* B, i64 ldb,
+                  __nv_bfloat16* C, i64 ldc, bool smem_c, cudaStream_t st) {
+  const Epi epi = smem_c && c_tma_ok(C, N, ldc, sizeof(*C)) ? kEpiStaged : kEpiRegs;
+  return launch<__nv_bfloat16, true>(M, N, K, A, lda, B, ldb, C, ldc, epi, st);
 }
 
 }  // namespace sm90
@@ -149,19 +177,25 @@ int launch_bf16c(int M, int N, int K, const void* A, i64 lda, const void* B, i64
 }  // namespace gemm
 
 // C[0:M, 0:N] -= A[0:M, 0:K] @ B[0:K, 0:N] with fp32 sums.  mode 0: bf16
-// operands on the tensor cores (the Hopper routine, register epilogue; A and
-// B at 16-byte aligned bases with row strides that are multiples of 8
-// elements, else the tensor maps fail to encode and the call returns an
-// error), C fp32, or bf16 when c_bf16; mode 2: fp32 operands on FFMA, C fp32.
+// operands on the tensor cores (the Hopper routine; A and B at 16-byte
+// aligned bases with row strides that are multiples of 8 elements, else the
+// tensor maps fail to encode and the call returns an error); mode 2: fp32
+// operands on FFMA, fp32 C.  c_mode: 0 fp32 C (C in registers), 1 bf16 C in
+// registers, 2 bf16 C through shared memory (needs a 16-byte base, row stride
+// and width, else the call returns cudaErrorInvalidValue: the caller decides
+// with the same test).
 MPF_API int mpf_trailing_sub(int mode, int M, int N, int K, const void* A, i64 lda,
-                             const void* B, i64 ldb, void* C, int c_bf16, i64 ldc,
+                             const void* B, i64 ldb, void* C, int c_mode, i64 ldc,
                              void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (mode == 0)
-    return c_bf16 ? gemm::sm90::launch(M, N, K, A, lda, B, ldb, (__nv_bfloat16*)C, ldc, false,
-                                       st)
-                  : gemm::sm90::launch(M, N, K, A, lda, B, ldb, (float*)C, ldc, false, st);
-  if (mode != 2 || c_bf16) return (int)cudaErrorInvalidValue;
+  if (mode == 0 && c_mode == 0)
+    return gemm::sm90::launch<float, false>(M, N, K, A, lda, B, ldb, (float*)C, ldc,
+                                            gemm::sm90::kEpiRegs, st);
+  if (mode == 0 && c_mode >= 1 && c_mode <= 2)
+    return gemm::sm90::launch<__nv_bfloat16, false>(M, N, K, A, lda, B, ldb,
+                                                    (__nv_bfloat16*)C, ldc,
+                                                    (gemm::sm90::Epi)(c_mode - 1), st);
+  if (mode != 2 || c_mode != 0) return (int)cudaErrorInvalidValue;
   return gemm::launch_gemm_sub(mode, M, N, K, A, lda, B, ldb, (float*)C, ldc, nullptr, 0, st);
 }
 

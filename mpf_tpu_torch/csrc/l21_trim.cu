@@ -24,12 +24,13 @@
 // Design: (1) the L21 pass of l21.cuh (shared with kernel 3): an FFMA GEMM,
 // 8 x 8 outputs a thread, TMA-fed stages, bf16 widened as it is read, each
 // entry one fmaf chain in ascending k, rounded once to bf16.
-// (2) the update pass is kernel 6's bf16-C function at K = r, so it runs
-// kernel 6's Hopper routine (gemm_sm90.cuh: TMA loads, wgmma, persistent
-// tiles), by default the instance that carries C through shared memory by
-// TMA, so that C's read-modify-write overlaps the neighbouring tiles'
-// products.  The side buffer's rows are padded to a multiple of 8 elements
-// so that TMA reads it in place.
+// (2) the update pass runs kernel 6's Hopper routine at K = r
+// (gemm_sm90.cuh: TMA loads, wgmma, persistent tiles) as its own launch,
+// trailing_kernel<bf16, true>, by default with its own layout that carries
+// C through shared memory by TMA (two A/B stages, two C slots), so that C's
+// read-modify-write overlaps the neighbouring tiles' products.  The side
+// buffer's rows are padded to a multiple of 8 elements so that TMA reads it
+// in place.
 #include "l21.cuh"
 
 typedef __nv_bfloat16 bf;
@@ -50,6 +51,6 @@ MPF_API int mpf_l21_trim(int m, int r, void* slab, i64 ld, int jj0, const int* p
 MPF_API int mpf_upd_wide(int m, int w, int r, const void* l21buf, i64 ldl, const void* u12,
                          i64 ldu, void* c, i64 ldc, int smem_c, void* stream) {
   if (m <= 0 || w <= 0) return (int)cudaGetLastError();
-  return gemm::sm90::launch_bf16c(m, w, r, l21buf, ldl, u12, ldu, (bf*)c, ldc, smem_c != 0,
-                                  (cudaStream_t)stream);
+  return gemm::sm90::launch_update(m, w, r, l21buf, ldl, u12, ldu, (bf*)c, ldc, smem_c != 0,
+                                   (cudaStream_t)stream);
 }

@@ -100,6 +100,10 @@ plain_calls = {k: 0 for k in KERNELS}
 #: (its update pass) and 13 that TMA could not read in place (0 on the main
 #: path).
 copies = {"gemm_operand": 0}
+#: Kernel 6's launches by instance: the Hopper routine with C through shared
+#: memory (``staged``) or in registers (``registers``), and the FFMA routine
+#: (``ffma``); together they are ``launches["trailing_sub"]``.
+trailing_instances = {"staged": 0, "registers": 0, "ffma": 0}
 #: Block columns factored by the block-column loop, by path.
 block_columns = {"fused": 0, "masked": 0}
 #: r-panels run inside those block columns, by path.
@@ -151,7 +155,7 @@ _lock = threading.Lock()
 
 
 def reset_counts() -> None:
-    for d in (launches, plain_calls, copies, block_columns, panels):
+    for d in (launches, plain_calls, copies, trailing_instances, block_columns, panels):
         for k in d:
             d[k] = 0
 

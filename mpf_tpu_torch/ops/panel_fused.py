@@ -13,7 +13,9 @@
   the same function in one pass over the full slab width, for fp32 and
   bf16 slabs (the JAX package's untrimmed form; tests only).
 * :func:`trailing_gemm_sub` (kernel 6, ``csrc/gemm_sub.cu``) — the trailing
-  update A[e:, e:e+w] -= L21 U12 in place, fp32 accumulation.
+  update A[e:, e:e+w] -= L21 U12 in place, fp32 accumulation; bf16 C that
+  TMA can read and write in place (:func:`trailing_staged`) goes through
+  shared memory.
 * :func:`rows_gather`, :func:`rows_scatter_inplace`,
   :func:`rows_scatter_from_band` (kernel 11, ``csrc/rows.cu``) — a gather of
   arbitrary rows and an in-place row scatter: the split row exchange
@@ -333,10 +335,10 @@ def upd_wide(slab, l21, rowblock, jj0: int, smem_c: bool = True):
     unchanged.  Returns ``slab``.
 
     CPU tensors take the plain version; CUDA tensors launch kernel 6's
-    Hopper routine (bf16 C), with C through shared memory when ``smem_c``
-    (and C's base and row stride allow it), else with the register
-    epilogue.  An operand that TMA cannot read in place is copied first
-    (:func:`_lib.gemm_operand`, counted)."""
+    Hopper routine as its own kernel (``trailing_kernel<bf16, true>``), with
+    C through shared memory when ``smem_c`` (and C's base and row stride
+    allow it), else with the register epilogue.  An operand that TMA cannot
+    read in place is copied first (:func:`_lib.gemm_operand`, counted)."""
     if not _lib.on_cuda(slab, l21, rowblock):
         return upd_wide_plain(slab, l21, rowblock, jj0)
     _row_major(slab, "upd_wide: slab", (torch.bfloat16,))
@@ -370,6 +372,35 @@ def trailing_gemm_sub_plain(a, l21, u12, ko, ncols=None):
     return a
 
 
+def trailing_staged(c) -> bool:
+    """Whether kernel 6 carries C = ``c`` (a view of a row-major matrix)
+    through shared memory: bf16 C at a 16-byte base with a row stride and a
+    width that are multiples of 16 bytes (:func:`_lib.tma_ready` and the
+    width; the C side's ``c_tma_ok``), which TMA reads and writes in place
+    (its stores write whole 16-byte pieces of a row).  Every ALL_BF16
+    trailing block at n a multiple of 8 qualifies.  Any other C keeps the
+    register epilogue: other bf16 C, and fp32 C, whose 128 x 256 tile (128
+    KB) fits beside no ring."""
+    return c.dtype == torch.bfloat16 and _lib.tma_ready(c) and c.shape[1] % 8 == 0
+
+
+def _trailing_launch(c, l21, u12, inst: str) -> None:
+    """One launch of kernel 6 on the view ``c`` (m, w) of a row-major matrix:
+    ``inst`` is ``ffma`` (fp32 operands and C), ``registers`` (bf16
+    operands, C in registers) or ``staged`` (bf16 operands, bf16 C through
+    shared memory, which needs :func:`trailing_staged`).  Counted in ``_lib.launches["trailing_sub"]``
+    and, by instance, in ``_lib.trailing_instances``."""
+    m, kk = l21.shape
+    mode = 2 if inst == "ffma" else 0
+    # mpf_trailing_sub's c_mode: 0 fp32 C, 1 bf16 C in registers, 2 staged
+    c_mode = 0 if c.dtype == torch.float32 else 2 if inst == "staged" else 1
+    l21, u12 = _lib.gemm_operand(l21), _lib.gemm_operand(u12)
+    _lib.call("mpf_trailing_sub", mode, m, c.shape[1], kk, l21.data_ptr(), l21.stride(0),
+              u12.data_ptr(), u12.stride(0), c.data_ptr(), c_mode, c.stride(0))
+    _lib.counted_launch("trailing_sub")
+    _lib.trailing_instances[inst] += 1
+
+
 def trailing_gemm_sub(a, l21, u12, ko: int, ncols: int | None = None):
     """IN PLACE on the matrix ``a``: a[ko:ko+m, ko:ko+ncols] -= l21 @ u12
     with fp32 accumulation (m = l21 rows; ``ncols`` defaults to m).  For an
@@ -379,7 +410,10 @@ def trailing_gemm_sub(a, l21, u12, ko: int, ncols: int | None = None):
 
     CPU tensors take the plain version; CUDA tensors launch kernel 6 (bf16
     operands that TMA cannot read in place are copied first,
-    :func:`_lib.gemm_operand`)."""
+    :func:`_lib.gemm_operand`): fp32 operands on the FFMA routine, bf16
+    operands on the Hopper routine, with C through shared memory where
+    :func:`trailing_staged` says so and in registers otherwise (the two
+    bitwise equal)."""
     if not _lib.on_cuda(a, l21, u12):
         return trailing_gemm_sub_plain(a, l21, u12, ko, ncols)
     _row_major(a, "trailing_gemm_sub: a")
@@ -392,15 +426,14 @@ def trailing_gemm_sub(a, l21, u12, ko: int, ncols: int | None = None):
                "trailing_gemm_sub: l21/u12 must be row-major")
     _lib.check(ko + m <= a.shape[0] and ko + ncols <= a.shape[1],
                "trailing_gemm_sub: update region outside a")
-    c_bf16 = a.dtype == torch.bfloat16
-    _lib.check(not c_bf16 or l21.dtype == torch.bfloat16,
+    _lib.check(a.dtype != torch.bfloat16 or l21.dtype == torch.bfloat16,
                "trailing_gemm_sub: a bf16 matrix takes bf16 l21/u12")
-    mode = 0 if l21.dtype == torch.bfloat16 else 2
-    l21, u12 = _lib.gemm_operand(l21), _lib.gemm_operand(u12)
     c = a[ko:ko + m, ko:ko + ncols]
-    _lib.call("mpf_trailing_sub", mode, m, ncols, kk, l21.data_ptr(), l21.stride(0),
-              u12.data_ptr(), u12.stride(0), c.data_ptr(), int(c_bf16), a.stride(0))
-    _lib.counted_launch("trailing_sub")
+    if l21.dtype == torch.float32:
+        inst = "ffma"
+    else:
+        inst = "staged" if trailing_staged(c) else "registers"
+    _trailing_launch(c, l21, u12, inst)
     return a
 
 

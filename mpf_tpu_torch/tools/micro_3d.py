@@ -27,6 +27,7 @@ import torch
 from mpf_tpu_torch.ops import _lib
 from mpf_tpu_torch.ops.blas3 import ieee_fp32
 from mpf_tpu_torch.ops.pair3d import _block_copy
+from mpf_tpu_torch.ops.panel_fused import trailing_staged
 from mpf_tpu_torch.tools import device, errors, finish, leg, max_abs, parser, rate, time_ms
 from mpf_tpu_torch.utils.oracle import sum_slack, within_bf16_ulp
 
@@ -114,7 +115,8 @@ def gemm3d(a3, b, c3):
     """A new (s/2, 2, w) tensor ``T(f32(C3) - reshape(A3)(s, k) @ B)`` with
     fp32 sums.  CPU tensors take the plain version; CUDA tensors copy C3
     into the output (``mpf_block_copy``) and run kernel 6 in place on its
-    (s, w) view: bf16 operands on the tensor cores with a bf16 store, fp32
+    (s, w) view: bf16 operands on the tensor cores with a bf16 store (C
+    through shared memory where :func:`trailing_staged` allows), fp32
     operands on FFMA."""
     _gemm3d_check(a3, b, c3)
     if not _lib.on_cuda(a3, b, c3):
@@ -125,9 +127,12 @@ def gemm3d(a3, b, c3):
     o2 = out.view(s, w)
     _block_copy(o2, c3.view(s, w))
     bf16 = c3.dtype == torch.bfloat16
+    # c_mode: bf16 C as kernel 6 takes it, through shared memory (2) where
+    # TMA can address it, else in registers (1); fp32 C (0)
+    c_mode = (2 if trailing_staged(o2) else 1) if bf16 else 0
     a2, b = _lib.gemm_operand(a3.view(s, k)), _lib.gemm_operand(b)
     _lib.call("mpf_trailing_sub", 0 if bf16 else 2, s, w, k, a2.data_ptr(), a2.stride(0),
-              b.data_ptr(), b.stride(0), o2.data_ptr(), int(bf16), w)
+              b.data_ptr(), b.stride(0), o2.data_ptr(), c_mode, w)
     _lib.counted_launch("probe_gemm3d")
     return out
 

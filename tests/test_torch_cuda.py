@@ -24,8 +24,8 @@ from mpf_tpu_torch.ops.panel_fused import (
     panel_apply_update_trim, panel_apply_update_trim_plain,
     rowblock_assemble, rowblock_assemble_plain, rows_gather, rows_gather_plain,
     rows_scatter_from_band, rows_scatter_from_band_plain, rows_scatter_inplace,
-    rows_scatter_inplace_plain, trailing_gemm_sub, trailing_gemm_sub_plain, upd_wide,
-    upd_wide_plain)
+    rows_scatter_inplace_plain, _trailing_launch, trailing_gemm_sub, trailing_gemm_sub_plain,
+    trailing_staged, upd_wide, upd_wide_plain)
 from mpf_tpu_torch.ops.panel_pallas import (
     getf2_npv_block, getf2_npv_inv_block, getf2_npv_inv_plain, hgetf2_panel_plain,
     hgetf2_panel_swaps, laswp_apply, laswp_plain)
@@ -186,6 +186,96 @@ def test_trailing_sm90_unaligned(cuda, cdt):
     assert _lib.launches["trailing_sub"] == 1 and _lib.copies["gemm_operand"] == 2
     trailing_gemm_sub_plain(y, l21, u12, 101, ncols=700)
     assert _close_to_plain(x, y, a, (slice(101, 1001), slice(101, 801)), l21, u12)
+
+
+def _k6_operands(cuda, seed, m, w, kk):
+    """L21 (m, kk) and U12 (kk, w) bf16 in [-0.5, 0.5), views of buffers
+    with 16-byte rows (no copy)."""
+    gen = _gen(cuda, seed)
+    l21 = (torch.rand((m, -(-kk // 8) * 8), generator=gen, device=cuda) - 0.5).to(BF)[:, :kk]
+    u12 = (torch.rand((kk, -(-w // 8) * 8), generator=gen, device=cuda) - 0.5).to(BF)[:, :w]
+    return l21, u12
+
+
+@pytest.mark.parametrize("kk", [64, 1000, 1024])
+@pytest.mark.parametrize("n,e,w,m", [(1016, 104, 912, None), (4024, 1024, 3000, None),
+                                     (4024, 1024, 3000, 1000), (1016, 104, 900, None),
+                                     (4100, 1, 4096, None)],
+                         ids=["ragged", "more_tiles_than_sms", "rows_below_c",
+                              "width_not_16_bytes", "misaligned"])
+def test_trailing_staged_bitwise(cuda, n, e, w, m, kk):
+    """Kernel 6's bf16-C instances on C = a[e:e + m, e:e + w] of an n x n
+    bf16 matrix (m = n - e, or 1000 with rows of the matrix below C), M
+    and N no tile multiples (M = 912, 3000 and 1000: 32, 288 and 32 tiles,
+    against 132 SMs), K in {64, 1000, 1024}.  Where C qualifies (a 16-byte
+    base, row stride and width) the wrapper takes C through shared memory,
+    and that instance and the register epilogue are bitwise equal.  Where it does not (a width of 1800 bytes; a base 2 bytes
+    off in a 4100-wide matrix) the wrapper takes the register epilogue and
+    the C call refuses the staged one; the misaligned C's entries are
+    bitwise those of the same update through shared memory on an aligned
+    copy.  Within one bf16 ulp plus the fp32 sum-order bound of the plain
+    version; outside C untouched, the columns right of it and the rows
+    below it (a TMA store writes whole 16-byte pieces of a row)."""
+    a = _hpl(n, 31, cuda).to(BF)
+    m = n - e if m is None else m
+    l21, u12 = _k6_operands(cuda, 32, m, w, kk)
+    reg = (slice(e, e + m), slice(e, e + w))
+    x, y = a.clone(), a.clone()
+    _lib.reset_counts()
+    trailing_gemm_sub(x, l21, u12, e, ncols=w)
+    staged = trailing_staged(a[reg])
+    assert staged == (w % 8 == 0 and e != 1)
+    assert _lib.trailing_instances == {"staged": int(staged), "registers": int(not staged),
+                                       "ffma": 0}
+    assert _lib.launches["trailing_sub"] == 1 and _lib.copies["gemm_operand"] == 0
+    trailing_gemm_sub_plain(y, l21, u12, e, ncols=w)
+    assert _close_to_plain(x, y, a, reg, l21, u12)
+    if staged:
+        for inst in ("registers", "staged"):
+            z = a.clone()
+            _trailing_launch(z[reg], l21, u12, inst)
+            assert torch.equal(z, x), inst
+        return
+    with pytest.raises(RuntimeError):
+        _trailing_launch(a.clone()[reg], l21, u12, "staged")
+    if w % 8 == 0:
+        # the same C at a 16-byte base, with rows of a multiple of 16 bytes
+        c = torch.zeros((m + 8, w + 16), dtype=BF, device=cuda)[8:, 8:8 + w]
+        assert trailing_staged(c)
+        c.copy_(a[reg])
+        _trailing_launch(c, l21, u12, "staged")
+        assert torch.equal(c, x[reg])
+
+
+def test_kernel6_profiler_names_all_bf16(cuda):
+    """One ALL_BF16 factorization at n = 4096 under torch.profiler: the
+    device events the benchmark charges to kernel 6
+    (``benchmark_torch.readers.TRAILING``) are exactly the launches counted
+    under ``trailing_sub``, every one through shared memory, and none of
+    them is kernel 12's update pass (``trailing_kernel<bf16, true>``), whose
+    events are its own launch count."""
+    import re
+
+    from benchmark_torch.readers import TRAILING
+
+    n = 4096
+    a = _hpl(n, 33, cuda).to(BF)
+    fac = make_mpf(n, r=128, block=1024, policy=ALL_BF16)
+    fac(a.clone())
+    torch.cuda.synchronize()
+    _lib.reset_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fac(a.clone())
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA]
+    k6 = [nm for nm in names if any(re.search(p, nm) for p in TRAILING)]
+    k12 = [nm for nm in names if re.search(r"\btrailing_kernel<[^<>]*,\s*true>", nm)]
+    launched = _lib.launches["trailing_sub"]
+    assert launched == n // 1024 - 1 and len(k6) == launched
+    assert _lib.trailing_instances == {"staged": launched, "registers": 0, "ffma": 0}
+    assert not any(re.search(r",\s*true>", nm) for nm in k6)
+    assert len(k12) == _lib.launches["upd_wide"] > 0
 
 
 def _within_fp64_update(x, a, reg, l21, u12):

@@ -8,7 +8,7 @@ the plain versions)."""
 import pytest
 import torch
 
-from mpf_tpu_torch.ops import _lib
+from mpf_tpu_torch.ops import _lib, panel_fused
 from mpf_tpu_torch.ops.gemmx import gemm_trailing, gemm_trailing_plain
 from mpf_tpu_torch.ops.panel_fused import trailing_gemm_sub, trailing_gemm_sub_plain
 
@@ -98,3 +98,52 @@ def test_cpu_kernel13_copies_nothing():
     _, py = gemm_trailing_plain(y, l21, u12, 100, 251, xargs=(100, glist, glist))
     assert torch.equal(x, y) and torch.equal(px, py)
 
+
+
+# Kernel 6's C instance (``panel_fused.trailing_staged``): bf16 C goes
+# through shared memory when TMA can read and write it in place, a 16-byte
+# base, row stride and width; any other C stays in registers.  (matrix, e,
+# width of the update, want): the C of ``a[e:e + w, e:e + w]``.
+_C_CASES = {
+    "all_bf16_trailing_block": (lambda: _mat(2048, 2048), 1024, 1024, True),
+    "offset_8_elements": (lambda: _mat(512, 512), 8, 296, True),
+    "row_stride_1000": (lambda: _mat(1000, 1000), 104, 704, True),
+    "odd_offset": (lambda: _mat(512, 512), 1, 300, False),
+    "offset_4_elements": (lambda: _mat(512, 512), 4, 300, False),
+    "odd_row_stride": (lambda: _mat(1001, 1001), 101, 700, False),
+    "width_not_16_bytes": (lambda: _mat(1024, 1024), 104, 900, False),
+    "fp32_c": (lambda: _mat(2048, 2048, torch.float32), 1024, 1024, False),
+}
+
+
+@pytest.mark.parametrize("case", list(_C_CASES), ids=list(_C_CASES))
+def test_trailing_staged_predicate(case):
+    make, e, w, want = _C_CASES[case]
+    a = make()
+    c = a[e:e + w, e:e + w]
+    assert panel_fused.trailing_staged(c) is want
+    if c.dtype == BF:
+        assert want == (_lib.tma_ready(c) and (c.shape[1] * 2) % 16 == 0)
+
+
+@pytest.mark.parametrize("case", list(_C_CASES), ids=list(_C_CASES))
+def test_kernel6_instance_follows_c(case, monkeypatch):
+    """The wrapper's CUDA branch with the C call captured: the ``c_mode`` it
+    passes is the predicate's decision (2 through shared memory, 1 bf16 C
+    in registers, 0 fp32 C), one launch counted under that instance."""
+    make, e, w, want = _C_CASES[case]
+    a = make()
+    calls = []
+    monkeypatch.setattr(_lib, "on_cuda", lambda *t: True)
+    monkeypatch.setattr(_lib, "call", lambda name, *args: calls.append((name, args)))
+    l21 = _mat(w, 64, seed=7)
+    u12 = _mat(64, w, seed=8)
+    trailing_gemm_sub(a, l21, u12, e, ncols=w)
+    (name, args), = calls
+    c = a[e:e + w, e:e + w]
+    assert name == "mpf_trailing_sub" and args[0] == 0 and args[1:4] == (w, w, 64)
+    assert args[8] == c.data_ptr() and args[10] == a.stride(0)
+    assert args[9] == (2 if want else 1 if a.dtype == BF else 0)
+    inst = "staged" if want else "registers"
+    assert _lib.trailing_instances == {"staged": 0, "registers": 0, "ffma": 0, inst: 1}
+    assert _lib.launches["trailing_sub"] == 1
