@@ -80,7 +80,9 @@ Phases, one line each:
      FFMA instance's TF/s and share of the fp32 peak beside the library
      call and the bound;
      kernel 11's gather, scatter from the band and scatter of values
-     bitwise equal to their plain versions, fp32 and bf16;
+     bitwise equal to their plain versions, fp32 and bf16 (kernel 11 is on
+     no driver path: its row reports these launches and 0 a
+     factorization);
   3b. (run after 5d, before 6) MPF_REF on the fused path at n = 16384, r =
      128 on both matrices (kernels 3 and 6 with fp32 operands: the FFMA
      routine), then the lookahead driver (kernel 13's FFMA instance):
@@ -95,10 +97,6 @@ Phases, one line each:
   6b. lookahead under ALL_BF16 at n = 16384 (both matrices, beside phase 5)
      and at n = 65536 on HPL-AI (one timed run beside 5b's, launch counts,
      oracle, peak memory);
-  6c. MPF_XCHG=split (kernel 11 in place of kernel 4): factors, pivots and
-     row map bitwise equal to phase 3's, launch counts, median of 3;
-  6d. superblock S = 4096 at n = 16384 on both matrices: the launch counts
-     of its mid and far updates, oracle, median of 3;
   2e. (run after 2d) kernel 14 at the deferred exchange's shapes (n =
      16384, S = 8, block 1024): the band copy of 1024 rows and a flush of
      8192 overflow slots with 4096 live rows, fp32 and bf16, bitwise equal
@@ -161,7 +159,6 @@ Any failure exits nonzero before that line.  No JAX is imported.
 from __future__ import annotations
 
 import json
-import os
 import subprocess
 import sys
 import time
@@ -186,7 +183,7 @@ MASKED = ("tri_inv", "trailing_sub", "hgetf2", "npv_inv", "laswp")
 FUSED_BF16 = ("strip_pivots", "rowblock", "l21_trim", "upd_wide", "rows_exchange",
               "tri_inv", "trailing_sub")
 MASKED_BF16 = ("tri_inv", "trailing_sub", "hgetf2", "laswp")
-SPLIT = ("rows_gather", "rows_scatter")  # kernel 11, MPF_XCHG=split
+ROWS11 = ("rows_gather", "rows_scatter")  # kernel 11, on no driver path
 DEFER = ("copy_rows", "flush_overflow")  # kernel 14, the deferred exchange
 DEFER_S = 8                              # its group size in phases 7 and 7b
 PAIRS = ("slab_extract", "slab_writeback", "band_write", "u12_inplace")  # 15a-15d
@@ -208,26 +205,22 @@ BF = torch.bfloat16
 
 
 def fused_counts(n: int, r: int, bc: int, bf16: bool = False, lookahead: bool = False,
-                 split: bool = False, super_cols: int = 0, defer_s: int = 0,
-                 pairs: bool = False) -> dict:
+                 defer_s: int = 0, pairs: bool = False) -> dict:
     """Launches of one fused factorization of an n x n matrix, stated from
     the algorithm: every panel runs kernels 1 and 2 and B (kernel 3; under
     ALL_BF16 kernel 12's L21 pass, and its update pass on every panel but
     the last of its block column), every block column one exchange (kernel
-    4, or kernel 11's gather and scatter under MPF_XCHG=split), every block
-    column but the last one kernel-5 launch and one trailing GEMM.
+    4), every block column but the last one kernel-5 launch and one
+    trailing GEMM.
     Lookahead: block column 0 and the last one exchange on their own, the
     others inside kernel 13, which runs once for each block column with a
     wide part left (all but the last two); kernel 6 runs the narrow parts.
-    Superblock of ``super_cols`` block columns: a mid update with no
-    columns left is skipped (one a superblock, the last one's is the end of
-    the matrix), and each superblock but the last adds a far update (one
-    kernel 6, one kernel 5 per block column of it).  Deferred exchange in
-    groups of ``defer_s`` block columns: kernel 4 still runs in every block
-    column (its eager part), kernel 14's band copy in every block column and
-    its flush once a group.  Pair layout: every block column one slab
-    extract, one writeback and one band write beside its kernel 4, and every
-    block column but the last one in-place U12 beside its kernels 5 and 6."""
+    Deferred exchange in groups of ``defer_s`` block columns: kernel 4
+    still runs in every block column (its eager part), kernel 14's band
+    copy in every block column and its flush once a group.  Pair layout:
+    every block column one slab extract, one writeback and one band write
+    beside its kernel 4, and every block column but the last one in-place
+    U12 beside its kernels 5 and 6."""
     panels, cols = n // r, n // bc
     c = {"strip_pivots": panels, "rowblock": panels, "rows_exchange": cols,
          "tri_inv": cols - 1, "trailing_sub": cols - 1}
@@ -237,12 +230,6 @@ def fused_counts(n: int, r: int, bc: int, bf16: bool = False, lookahead: bool = 
         c["panel_update"] = panels
     if lookahead:
         c.update(rows_exchange=2, gemmx=cols - 2)
-    if split:
-        c.update(rows_exchange=0, rows_gather=cols, rows_scatter=cols)
-    if super_cols:
-        supers = cols // super_cols
-        mid = cols - 1 - (supers - 1)
-        c.update(trailing_sub=mid + supers - 1, tri_inv=mid + (supers - 1) * super_cols)
     if defer_s:
         c.update(copy_rows=cols, flush_overflow=-(-cols // defer_s))
     if pairs:
@@ -1293,6 +1280,7 @@ def main() -> int:
 
     # #11 at the same band, fp32 and bf16: bitwise equal to the plain versions
     err11 = 0.0
+    launched11 = {name: _lib.launches[name] for name in ROWS11}
     for dt, a11 in ((torch.float32, hpl), (BF, hpl_b)):
         tag = str(dt)[6:]
         g_k, g_p = rows_gather(a11, glist), rows_gather_plain(a11, glist)
@@ -1328,6 +1316,7 @@ def main() -> int:
             record_bf16("rows_gather", err11, gms, gpms, bound(2 * el * bc * n), glib)
             record_bf16("rows_scatter", err11, sms, spms, bound(2 * el * moved * n), slib)
         del x, y, x2, y2, g_k, g_p
+    launched11 = {name: _lib.launches[name] - launched11[name] for name in ROWS11}
     del hpl_b
     torch.cuda.empty_cache()
 
@@ -1666,7 +1655,7 @@ def main() -> int:
     fac = T.make_mpf(n, r=r, policy=T.MPF_BF16)
     main_counts = None
     bf16_policy_ms = {}
-    classic = {}   # corpus -> phase 3's result, the reference of phases 6, 6c and 6d
+    classic = {}   # corpus -> phase 3's result, the reference of phases 6, 7 and 8
     for corpus, gen in (("hpl_ai", matgen.hpl_ai_matrix), ("uniform", matgen.random_dense)):
         a0 = torch.from_numpy(gen(n, seed=0)).to(dev)
         work = a0.clone()
@@ -2004,7 +1993,7 @@ def main() -> int:
     masked_run("all_bf16_pivot_false", 4096, r, T.ALL_BF16, "hpl_ai", matgen.hpl_ai_matrix,
                False, None, NBE_TOL_BF16, False, fused_panels=0, masked_panels=4096 // r)
 
-    # ---------------- phases 6-6d: lookahead, split exchange, superblock ----
+    # ---------------- phases 6-8: lookahead, deferred exchange, pairs -----
     def variant_run(tag, fac6, policy, corpus, gen, want, tol, ref, ref_ms,
                     same_pivots: bool, bitwise: bool = False, pairs: bool = False,
                     keep=None):
@@ -2110,26 +2099,6 @@ def main() -> int:
         variant_run("lookahead_all_bf16", fac6b, T.ALL_BF16, corpus, gen, want6b,
                     NBE_TOL_BF16, classic_bf16[corpus], all_bf16_ms[corpus],
                     same_pivots=corpus == "hpl_ai")
-    # 6c: MPF_XCHG=split (kernel 11 in place of kernel 4), read by make_mpf
-    # when it builds: bitwise the classic loop's result
-    os.environ["MPF_XCHG"] = "split"
-    try:
-        fac6c = T.make_mpf(n, r=r, policy=T.MPF_BF16)
-    finally:
-        del os.environ["MPF_XCHG"]
-    want6c = fused_counts(n, r, bc, split=True)
-    split_counts = None
-    for corpus, gen in corpora:
-        cnt = variant_run("split_exchange_mpf_bf16", fac6c, T.MPF_BF16, corpus, gen, want6c,
-                          NBE_TOL, classic[corpus], bf16_policy_ms[corpus],
-                          same_pivots=True, bitwise=True)
-        split_counts = split_counts or cnt
-    # 6d: superblock S = 4096 (4 block columns): 12 mid updates, 3 far
-    fac6d = T.make_mpf(n, r=r, policy=T.MPF_BF16, super_block=4 * bc)
-    want6d = fused_counts(n, r, bc, super_cols=4)
-    for corpus, gen in corpora:
-        variant_run("superblock_4096_mpf_bf16", fac6d, T.MPF_BF16, corpus, gen, want6d,
-                    NBE_TOL, classic[corpus], bf16_policy_ms[corpus], same_pivots=False)
     # 7: the deferred exchange, S = 8 (two groups): bitwise the classic
     # loop's result, the band copy in every block column and one flush a group
     fac7 = T.make_mpf(n, r=r, policy=T.MPF_BF16, defer=DEFER_S)
@@ -2161,9 +2130,13 @@ def main() -> int:
             kern[name].update(launches=int(probe_counts[name]), launches_per_factorization=0,
                               path="tools (python -m mpf_tpu_torch.tools.*, phase 2g)")
             continue
+        if name in ROWS11:
+            kern[name].update(launches=int(launched11[name]), launches_per_factorization=0,
+                              path="none (tests and phase 2d)")
+            continue
         counts = (main_counts if name in FUSED else masked_counts if name in MASKED
                   else lookahead_counts if name == "gemmx"
-                  else split_counts if name in SPLIT else defer_counts if name in DEFER
+                  else defer_counts if name in DEFER
                   else pair_counts if name in PAIRS else bf16_counts)
         kern[name]["launches"] = int(counts[name])
         if name in FUSED and name in MASKED:
@@ -2171,7 +2144,7 @@ def main() -> int:
         if name in FUSED_BF16 and name in FUSED + MASKED:
             kern[name]["launches_all_bf16"] = int(bf16_counts[name])
         paths = [p for p, ks in (("fused", FUSED), ("masked", MASKED), ("all_bf16", FUSED_BF16),
-                                 ("lookahead", ("gemmx",)), ("split_exchange", SPLIT),
+                                 ("lookahead", ("gemmx",)),
                                  ("deferred_exchange", DEFER),
                                  ("pair_layout", FUSED + FUSED_BF16 + PAIRS))
                  if name in ks]

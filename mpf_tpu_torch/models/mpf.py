@@ -28,42 +28,38 @@ of two paths, chosen as the JAX package chooses (`mpf.py:1115`):
   same function).  Then the rows outside the block column are exchanged
   with the block column's composed row map (:func:`laswp_apply`).
 
-The fused path's row exchange is kernel 4 (:func:`rows_exchange`), or,
-under ``MPF_XCHG=split``, kernel 11: :func:`rows_gather` then
-:func:`rows_scatter_from_band` (`mpf.py:1149-1164`); both end in the band
-write and give the same matrix.
+The fused path's row exchange is kernel 4 (:func:`rows_exchange`),
+followed by the band write.
 
 Both paths end in the trailing update (`_trailing_update`): U12 =
 L11^{-1} A12 through :func:`unit_lower_inv_blocked` and an IEEE-fp32
 ``torch.matmul`` of upcast operands, rounded once to the working dtype,
 then :func:`trailing_gemm_sub` with the policy's ``gemm_in`` operands.
 
-Four variants of the loop, as in the JAX package:
+The driver reads no environment: the loop above runs unless an explicit
+argument or the input's shape asks for one of three variants of it, as
+in the JAX package.  No benchmark cell runs them and none has beaten the
+loop above on the card; they stay until each has replacement tests of
+its own:
 
-* **superblock** (``super_block=S`` / ``MPF_SUPER``, `_resolve_super`):
-  inside each S-wide superblock the trailing update stops at the
-  superblock's right edge (the mid update); once per superblock the far
-  columns take one K = S update whose U12 is solved per inner block, with
-  the coupling as ``gemm_in`` correction products (`mpf.py:1213-1227`).
-* **lookahead** (``lookahead=True`` / ``MPF_LOOKAHEAD=1``,
-  `_lookahead_factorize`): each trailing update is split at the next block
-  column's right edge; the next panel is factored after the narrow part,
-  and its row exchange runs inside the wide part's GEMM (kernel 13,
-  :func:`gemm_trailing`).  The same arithmetic in another order, on one
-  stream.  Its gate is the JAX package's (`mpf.py:1059-1081`: pivoting,
-  no superblock, the combined exchange, n >= 2 block, every block column
-  fused) without the TPU tile alignment (n and block multiples of 1024),
-  which kernel 13 does not need.
+* **lookahead** (``lookahead=True``, `_lookahead_factorize`): each
+  trailing update is split at the next block column's right edge; the
+  next panel is factored after the narrow part, and its row exchange runs
+  inside the wide part's GEMM (kernel 13, :func:`gemm_trailing`).  The
+  same arithmetic in another order, on one stream.  Its gate is the JAX
+  package's (`mpf.py:1059-1081`: pivoting, n >= 2 block, every block
+  column fused) without the TPU tile alignment (n and block multiples of
+  1024), which kernel 13 does not need.
 
-* **deferred exchange** (``defer=S`` / ``MPF_DEFER``,
-  `_deferred_factorize`): block columns run in groups of S; a displaced
-  band row whose destination lies beyond the group goes to an overflow
-  strip of S block rows below the matrix (kernel 14's band copy,
-  :func:`copy_rows_block`) and home once per group (kernel 14's flush,
-  :func:`flush_overflow`).  Kernel 1 sees each overflow row at its
-  destination and the stale copies as dead rows, so pivots, row map and
-  factors are the classic loop's.  Gate and entry: :func:`_resolve_defer`;
-  a pre-extended ``(n + S·block, n)`` input is factored in place.
+* **deferred exchange** (``defer=S``, `_deferred_factorize`): block
+  columns run in groups of S; a displaced band row whose destination lies
+  beyond the group goes to an overflow strip of S block rows below the
+  matrix (kernel 14's band copy, :func:`copy_rows_block`) and home once per
+  group (kernel 14's flush, :func:`flush_overflow`).  Kernel 1 sees each
+  overflow row at its destination and the stale copies as dead rows, so
+  pivots, row map and factors are the classic loop's.  Gate and entry:
+  :func:`_resolve_defer`; a pre-extended ``(n + S·block, n)`` input is
+  factored in place.
 
 * **pair layout** (an ``(n/2, 2, n)`` input, row i at ``a[i // 2, i %
   2]``, `_factorize_3d`): the classic fused loop on the 3D tensor, which
@@ -91,7 +87,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mpf_tpu_torch import config
 from mpf_tpu_torch.precision import PrecisionPolicy, MPF_BF16, cast_to_panel
 from mpf_tpu_torch.ops import _lib
 from mpf_tpu_torch.ops.blas3 import (
@@ -111,8 +106,6 @@ from mpf_tpu_torch.ops.getf2 import getf2_npv
 from mpf_tpu_torch.ops.panel_fused import (
     panel_apply_update_trim,
     rowblock_assemble,
-    rows_gather,
-    rows_scatter_from_band,
     trailing_gemm_sub,
 )
 from mpf_tpu_torch.ops.panel_pallas import (
@@ -130,25 +123,29 @@ from mpf_tpu_torch.ops.pair3d import (
 from mpf_tpu_torch.ops.panel_strip import SENT, strip_panel_pivots
 
 
-class _Knobs(NamedTuple):
-    """The driver's env-resolved options (`config`): the requested
-    superblock width before its shape checks, the lookahead request, the
-    exchange mode, and the requested deferred-exchange group size before
-    its shape checks with whether it came from ``auto``."""
-
-    super_block: int | None
-    lookahead: bool
-    combined: bool
-    defer: int = 0
-    defer_auto: bool = False
+#: The deferred exchange's group size for ``defer=True``: the JAX
+#: package's default.
+DEFER_S = 8
 
 
-def _knobs(super_block="auto", lookahead: bool | None = None, defer=None,
-           pivot: bool = True) -> _Knobs:
-    """Read the env knobs once; explicit arguments win."""
-    return _Knobs(config.super_block(super_block), config.lookahead(lookahead),
-                  config.combined_exchange(), config.resolve_defer(defer, pivot),
-                  config.defer_is_auto(defer))
+def _options(lookahead, defer, pivot: bool, super_block="auto") -> tuple[bool, int]:
+    """The variant arguments, resolved once: whether lookahead is asked
+    for, and the deferred exchange's requested group size S before its
+    shape checks (0: off).  ``lookahead``: None or False is off.
+    ``defer``: None, False or 0 is off, True is :data:`DEFER_S`, an int is
+    S; ``pivot=False`` is off.  The port has no superblock driver:
+    ``super_block`` takes the JAX package's default ``"auto"`` or None,
+    and a width is refused."""
+    if super_block not in ("auto", None):
+        raise ValueError(f"super_block={super_block!r}: superblocks are not supported; "
+                         "pass 'auto' or None")
+    if not defer or not pivot:
+        s = 0
+    elif defer is True:
+        s = DEFER_S
+    else:
+        s = int(defer)
+    return bool(lookahead), max(s, 0)
 
 
 class MPFResult(NamedTuple):
@@ -425,83 +422,52 @@ def _masked_block_column(a, k: int, bc: int, r: int, policy, pivot: bool, panel_
     return info, perm_total
 
 
-def _resolve_super(n: int, block: int, s: int | None) -> int | None:
-    """The superblock width, or None (disabled): the requested width ``s``
-    (``_Knobs.super_block``, already read through :func:`config.super_block`)
-    kept only when it is a multiple of ``block`` wider than it and n holds
-    two of them (`mpf.py:462-483`); any other width disables it without
-    error."""
-    if s is not None and (s % block or s <= block or n < 2 * s):
-        return None
-    return s
-
-
 def _exchange(a, k: int, bc: int, stage, combined: bool) -> None:
-    """The fused block column's physical row exchange, then the band
-    write: kernel 4, or kernel 11's gather and scatter from the band
-    (``MPF_XCHG=split``), which move the same rows."""
-    glist, dests = stage[2], stage[3]
-    if combined:
-        pivrows = rows_exchange(a, k, glist, dests)
-    else:
-        pivrows = rows_gather(a, glist)
-        rows_scatter_from_band(a, k, dests)
-    a[k:k + bc] = pivrows
+    """The fused block column's physical row exchange (kernel 4), then the
+    band write.  ``combined`` is ignored: it is kept only for the
+    benchmark's fault stub, which takes the same parameters."""
+    a[k:k + bc] = rows_exchange(a, k, stage[2], stage[3])
 
 
-def _trailing_update(a, ks: int, kw: int, ce: int, policy, r: int, lu_diag=None,
-                     u12_block: int | None = None):
+def _trailing_update(a, ks: int, kw: int, ce: int, policy, r: int, lu_diag=None):
     """From the ``kw``-wide packed diagonal block at ``ks``: U12 :=
     L11^{-1} A12 over the columns [ks + kw, ce) (the ``mpf.u12`` stage),
     then A[ks+kw:, ks+kw:ce] -= L21 @ U12 (kernel 6, the ``mpf.trailing``
     stage), in place (`mpf.py:486-577`).  ``ce = n`` is the classic
-    full-width update; the superblock driver passes the superblock's end
-    (mid update) and ``kw`` = S with ``u12_block`` (far update), the
-    lookahead driver the next block column's end.  ``lu_diag``: the
-    diagonal block, when the caller holds it apart from ``a``.  Returns
-    L11^{-1} (None for the far update, or when there is nothing to
-    update), which the lookahead driver reuses for the wide part.
+    full-width update; the lookahead driver passes the next block column's
+    end.  ``lu_diag``: the diagonal block, when the caller holds it apart
+    from ``a``.  Returns L11^{-1} (None when there is nothing to update),
+    which the lookahead driver reuses for the wide part.
 
     U12 is IEEE fp32 products of operands in the working dtype, rounded
-    once.  With ``u12_block`` the far U12 is solved per inner block
-    (:func:`unit_lower_inv_blocked` of each diagonal block) and the
-    coupling to the blocks below is subtracted as ``policy.gemm_in``
-    products with fp32 accumulation, each band rounded once."""
+    once."""
     e = ks + kw
     w = ce - e
-    linv = None
     if w <= 0:
-        return linv
+        return None
     with _lib.span("mpf.u12"):
-        if u12_block and kw > u12_block:
-            for bs in range(0, kw, u12_block):
-                bw = min(u12_block, kw - bs)
-                lo = ks + bs
-                linv_b = unit_lower_inv_blocked(a[lo:lo + bw, lo:lo + bw], base=min(r, 128))
-                u12_b = matmul_in(linv_b, a[lo:lo + bw, e:ce], a.dtype).to(a.dtype)
-                a[lo:lo + bw, e:ce] = u12_b
-                if bs + bw < kw:
-                    corr = matmul_in(a[lo + bw:e, lo:lo + bw], u12_b, policy.gemm_in)
-                    a[lo + bw:e, e:ce] = (a[lo + bw:e, e:ce].float() - corr).to(a.dtype)
-            u12 = a[ks:e, e:ce]
-        else:
-            linv = unit_lower_inv_blocked(a[ks:e, ks:e] if lu_diag is None else lu_diag,
-                                          base=min(r, 128))
-            u12 = matmul_in(linv, a[ks:e, e:ce], a.dtype).to(a.dtype)
-            a[ks:e, e:ce] = u12
+        linv = unit_lower_inv_blocked(a[ks:e, ks:e] if lu_diag is None else lu_diag,
+                                      base=min(r, 128))
+        u12 = matmul_in(linv, a[ks:e, e:ce], a.dtype).to(a.dtype)
+        a[ks:e, e:ce] = u12
     with _lib.span("mpf.trailing"):
         l21 = a[e:, ks:e].to(policy.gemm_in)
         trailing_gemm_sub(a, l21, u12.to(policy.gemm_in), e, ncols=w)
     return linv
 
 
+def _all_fused(n: int, block: int, r: int, policy, pivot: bool, panel_kernel) -> bool:
+    """Every block column of an n x n matrix takes the fused path."""
+    return all(_takes_fused(min(block, n - k), r, policy, pivot, panel_kernel)
+               for k in range(0, n, block) if n - k > 1)
+
+
 def _lookahead_ok(n: int, r: int, block: int, policy, pivot: bool, panel_kernel,
-                  S, knobs: _Knobs) -> bool:
+                  lookahead: bool) -> bool:
     """The lookahead gate (`mpf.py:1059-1081` without the TPU's 1024
     alignment of n and block)."""
-    return (knobs.lookahead and pivot and S is None and knobs.combined and n >= 2 * block
-            and all(_takes_fused(min(block, n - k), r, policy, pivot, panel_kernel)
-                    for k in range(0, n, block) if n - k > 1))
+    return (lookahead and pivot and n >= 2 * block
+            and _all_fused(n, block, r, policy, pivot, panel_kernel))
 
 
 def _lookahead_factorize(a, r: int, policy, block: int, ipiv, info, perm_total) -> MPFResult:
@@ -623,23 +589,17 @@ def _deferred_factorize(a, r: int, policy, block: int, S: int, ipiv, info,
 
 
 def _pairs_ok(n: int, block: int, r: int, policy, pivot: bool, panel_kernel,
-              knobs: _Knobs, device=None) -> bool:
+              lookahead: bool, defer: int) -> bool:
     """The pair-layout gate (`mpf.py:984-1014`): pivoting, no
-    ``panel_kernel``, no superblock, lookahead or deferred exchange
-    requested (as :func:`_resolve_super`, the lookahead knob and
-    :func:`_resolve_defer` read them), the combined exchange, n % block ==
-    0, an even block and every block column on the fused path.  The one
-    difference: the JAX gate also requires ``kernels_on()``; the port runs
-    its plain versions on the CPU, as :func:`_lookahead_ok` and
-    :func:`_resolve_defer` do."""
-    return (pivot and panel_kernel is None
-            and _resolve_super(n, block, knobs.super_block) is None
-            and not knobs.lookahead
-            and not _resolve_defer(n, block, r, policy, pivot, panel_kernel, knobs,
-                                   pre_extended=False, device=device)
-            and knobs.combined and n % block == 0 and block % 2 == 0
-            and all(_takes_fused(min(block, n - k), r, policy, pivot, panel_kernel)
-                    for k in range(0, n, block) if n - k > 1))
+    ``panel_kernel``, neither lookahead nor a deferred exchange that
+    :func:`_resolve_defer` keeps, n % block == 0, an even block and every
+    block column on the fused path.  The one difference: the JAX gate also
+    requires ``kernels_on()``; the port runs its plain versions on the
+    CPU, as :func:`_lookahead_ok` and :func:`_resolve_defer` do."""
+    return (pivot and panel_kernel is None and not lookahead
+            and not _resolve_defer(n, block, r, policy, pivot, panel_kernel, defer)
+            and n % block == 0 and block % 2 == 0
+            and _all_fused(n, block, r, policy, pivot, panel_kernel))
 
 
 def _factorize_3d(a3, r: int, policy, block: int) -> MPFResult:
@@ -690,35 +650,18 @@ def _factorize_3d(a3, r: int, policy, block: int) -> MPFResult:
 
 
 def _resolve_defer(n: int, block: int, r: int, policy, pivot: bool, panel_kernel,
-                   knobs: _Knobs, pre_extended: bool = True, device=None) -> int:
+                   defer: int) -> int:
     """The deferred exchange's group size S, or 0 (off): `mpf.py:859-922`
-    on the requested S of ``knobs``.  It needs n % block == 0, n >= 2
-    block, the combined exchange and every block column on the fused path
-    (so ``MPF_FP16``, ``pivot=False`` and a ``panel_kernel`` resolve to 0).
-    An ``auto`` request (``MPF_DEFER=auto`` with ``MPF_DEFER_AUTO_S``) is
-    kept only for bf16 working storage at n >= 49152 and, for a square
-    input on a card, only when the extended buffer fits the device's free
-    memory.  Differences from the JAX gate: it also requires
-    ``kernels_on()`` and so ignores ``defer`` on its CPU default, where
-    the port's plain versions stand in for the kernels and ``defer`` runs
-    (as the lookahead gate, :func:`_lookahead_ok`); and its ``auto``
-    compares the matrix and its extension with the v5e's HBM size, where
-    the port compares the extension with ``torch.cuda.mem_get_info`` and
-    skips the check on the CPU."""
-    s = knobs.defer
-    if knobs.defer_auto:
-        if policy.working != torch.bfloat16 or n < 49152:
-            s = 0
-        if s and not pre_extended and device is not None and torch.device(device).type == "cuda":
-            item = torch.empty((), dtype=policy.working).element_size()
-            if item * n * (n + s * block) > torch.cuda.mem_get_info(device)[0]:
-                s = 0
-    if s <= 0 or n % block or n < 2 * block or not knobs.combined:
+    on the requested S (:func:`_options`).  It needs n % block == 0, n >=
+    2 block and every block column on the fused path (so ``MPF_FP16``,
+    ``pivot=False`` and a ``panel_kernel`` resolve to 0).  The one
+    difference from the JAX gate: it also requires ``kernels_on()`` and so
+    ignores ``defer`` on its CPU default, where the port's plain versions
+    stand in for the kernels and ``defer`` runs (as the lookahead gate,
+    :func:`_lookahead_ok`)."""
+    if defer <= 0 or n % block or n < 2 * block:
         return 0
-    if not all(_takes_fused(min(block, n - k), r, policy, pivot, panel_kernel)
-               for k in range(0, n, block) if n - k > 1):
-        return 0
-    return s
+    return defer if _all_fused(n, block, r, policy, pivot, panel_kernel) else 0
 
 
 def defer_extension(n: int, r: int = 128, policy: PrecisionPolicy = MPF_BF16,
@@ -730,27 +673,25 @@ def defer_extension(n: int, r: int = 128, policy: PrecisionPolicy = MPF_BF16,
     into a new extended buffer."""
     block = _auto_block(n, r, policy, block)
     return _resolve_defer(n, block, r, policy, pivot, None,
-                          _knobs(defer=defer, pivot=pivot)) * block
+                          _options(None, defer, pivot)[1]) * block
 
 
 def _factorize_inplace(a, r: int, policy, block: int, pivot: bool, panel_kernel,
-                       knobs: _Knobs) -> MPFResult:
+                       lookahead: bool, defer: int) -> MPFResult:
     """The routing of `mpf.py:1023-1109`: lookahead first (square input
-    only), then the deferred exchange (pivoting, no superblock), whose
-    resolved S·block must equal the rows a rectangular input carries below
-    its n x n matrix, else the classic loop."""
+    only), then the deferred exchange (pivoting), whose resolved S·block
+    must equal the rows a rectangular input carries below its n x n
+    matrix, else the classic loop."""
     n = a.shape[1]
     ov_in = a.shape[0] - n
     dev = a.device
     ipiv = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
     info = torch.zeros((), dtype=torch.int32, device=dev)
     perm_total = torch.arange(n, dtype=torch.int32, device=dev)
-    S = _resolve_super(n, block, knobs.super_block)
-    if not ov_in and _lookahead_ok(n, r, block, policy, pivot, panel_kernel, S, knobs):
+    if not ov_in and _lookahead_ok(n, r, block, policy, pivot, panel_kernel, lookahead):
         return _lookahead_factorize(a, r, policy, block, ipiv, info, perm_total)
-    if pivot and S is None:
-        sd = _resolve_defer(n, block, r, policy, pivot, panel_kernel, knobs,
-                            pre_extended=ov_in > 0, device=dev)
+    if pivot:
+        sd = _resolve_defer(n, block, r, policy, pivot, panel_kernel, defer)
         if ov_in and sd * block != ov_in:
             raise ValueError(
                 f"row-extended input carries ov={ov_in} overflow rows but the deferred "
@@ -769,19 +710,14 @@ def _factorize_inplace(a, r: int, policy, block: int, pivot: bool, panel_kernel,
         if _takes_fused(bc, r, policy, pivot, panel_kernel):
             info, stage = _fused_panel_stage(a, k, bc, r, policy, ipiv, info)
             with _lib.span("mpf.exchange"):
-                _exchange(a, k, bc, stage, knobs.combined)
+                _exchange(a, k, bc, stage, combined=True)
                 a[k:k + bc, k:k + bc] = stage[4]
                 perm_total = _compose_perm(perm_total, k, bc, stage)
         else:
             info, perm_total = _masked_block_column(a, k, bc, r, policy, pivot,
                                                     panel_kernel, ipiv, info, perm_total)
         if k + bc < n:
-            # superblock S: the mid update stops at the superblock's end; the
-            # far columns take one K = S update once the superblock is done
-            sb_end = n if S is None else min(k - k % S + S, n)
-            _trailing_update(a, k, bc, sb_end, policy, r)
-            if S is not None and k + bc == sb_end < n:
-                _trailing_update(a, sb_end - S, S, n, policy, r, u12_block=block)
+            _trailing_update(a, k, bc, n, policy, r)
     return MPFResult(lu=a, ipiv=ipiv, info=info, perm=perm_total)
 
 
@@ -814,12 +750,13 @@ def _as_tensor(a, device) -> torch.Tensor:
 
 
 def _factorize_entry(a: torch.Tensor, r: int, policy: PrecisionPolicy, block,
-                     pivot: bool, panel_kernel, knobs: _Knobs) -> MPFResult:
+                     pivot: bool, panel_kernel, lookahead: bool, defer: int) -> MPFResult:
     """In-place factorization of the contiguous working-dtype ``a`` (square,
     row-extended for the deferred exchange, or the pair layout) with the
-    knobs already read; a square n that is not a multiple of r and would
-    otherwise leave the fused path factors its identity extension (the
-    pair layout is never padded, as in the JAX package)."""
+    variant arguments already resolved (:func:`_options`); a square n that
+    is not a multiple of r and would otherwise leave the fused path
+    factors its identity extension (the pair layout is never padded, as in
+    the JAX package)."""
     _check_policy(policy)
     n = a.shape[-1]
     if a.dtype != policy.working or not a.is_contiguous():
@@ -827,10 +764,10 @@ def _factorize_entry(a: torch.Tensor, r: int, policy: PrecisionPolicy, block,
                          f"{policy.working} matrix, got {a.dtype}")
     if a.dim() == 3:
         block = _auto_block(n, r, policy, block)
-        if not _pairs_ok(n, block, r, policy, pivot, panel_kernel, knobs, a.device):
+        if not _pairs_ok(n, block, r, policy, pivot, panel_kernel, lookahead, defer):
             raise ValueError(
                 "pair-layout (3D) input requires the fused kernel path: pivot=True, "
-                "default panel kernel, combined exchange, no superblock/lookahead/defer, "
+                "default panel kernel, no lookahead/defer, "
                 f"n % block == 0, an even block and every block column fused-eligible "
                 f"(n={n}, block={block}, r={r}, policy={policy.name})")
         return _factorize_3d(a, r, policy, block)
@@ -843,7 +780,7 @@ def _factorize_entry(a: torch.Tensor, r: int, policy: PrecisionPolicy, block,
         apad[:n, :n] = a
         tail = torch.arange(n, n_pad, device=a.device)
         apad[tail, tail] = 1.0
-        res = _factorize_inplace(apad, r, policy, block_pad, True, None, knobs)
+        res = _factorize_inplace(apad, r, policy, block_pad, True, None, lookahead, defer)
         return MPFResult(
             lu=res.lu[:n, :n],
             ipiv=res.ipiv[:n],
@@ -851,7 +788,7 @@ def _factorize_entry(a: torch.Tensor, r: int, policy: PrecisionPolicy, block,
             info=torch.where(res.info > n, torch.zeros_like(res.info), res.info),
             perm=res.perm[:n],
         )
-    return _factorize_inplace(a, r, policy, block, pivot, panel_kernel, knobs)
+    return _factorize_inplace(a, r, policy, block, pivot, panel_kernel, lookahead, defer)
 
 
 def mpf_factorize_inplace(a: torch.Tensor, r: int = 128,
@@ -864,11 +801,11 @@ def mpf_factorize_inplace(a: torch.Tensor, r: int = 128,
     multiple of r and that would otherwise leave the fused path, or an
     extended copy under ``defer``), row-extended ``(n + S·block, n)`` for
     the deferred exchange (``result.lu`` is ``a[:n]``), or the ``(n/2, 2,
-    n)`` pair layout (``result.lu`` is ``a``).  The env knobs
-    (`mpf_tpu_torch.config`) are read at each call."""
+    n)`` pair layout (``result.lu`` is ``a``).  The variant arguments are
+    :func:`mpf_factorize`'s."""
     _check_args(a)
     return _factorize_entry(a, r, policy, block, pivot, panel_kernel,
-                            _knobs(super_block, lookahead, defer, pivot))
+                            *_options(lookahead, defer, pivot, super_block))
 
 
 def mpf_factorize(
@@ -892,18 +829,17 @@ def mpf_factorize(
     own device unless ``device`` is given.  Runs the kernels for a CUDA
     tensor and their plain versions for a CPU tensor.
 
-    ``super_block``: superblock width (default ``"auto"``: the
-    ``MPF_SUPER`` knob, else off); ``lookahead``: the one-deep lookahead
-    driver (None: the ``MPF_LOOKAHEAD`` knob); ``defer``: the deferred
-    exchange's group size S (an int, True for ``MPF_DEFER_S``, False, or
-    None for the ``MPF_DEFER`` knob; see :func:`_resolve_defer`); the
-    exchange mode follows ``MPF_XCHG``.  The knobs are read at each call."""
+    ``lookahead=True`` runs the one-deep lookahead driver; ``defer`` the
+    deferred exchange's group size S (an int, True for :data:`DEFER_S`;
+    None, False or 0: off; see :func:`_resolve_defer`).  ``super_block``
+    takes ``"auto"`` or None only, and raises ValueError for a width.  No
+    environment variable is read."""
+    opts = _options(lookahead, defer, pivot, super_block)
     a = _as_tensor(a, device)
     _check_args(a)
     _check_policy(policy)
     work = a.to(dtype=policy.working, copy=True).contiguous()
-    return _factorize_entry(work, r, policy, block, pivot, None,
-                            _knobs(super_block, lookahead, defer, pivot))
+    return _factorize_entry(work, r, policy, block, pivot, None, *opts)
 
 
 def make_mpf(
@@ -928,20 +864,17 @@ def make_mpf(
     (:func:`defer_extension`).
     ``panel_kernel(panel, row_offset=, prev_perm=) -> (piv, perm,
     composed)`` replaces kernel 7 in the masked path, which every block
-    column then takes.  ``super_block``, ``lookahead`` and the env knobs
-    (``MPF_SUPER``, ``MPF_LOOKAHEAD``, ``MPF_XCHG``, ``MPF_DEFER``,
-    ``MPF_DEFER_S``, ``MPF_DEFER_AUTO_S``) are read here, once: the
-    factorizer keeps them, as the JAX package freezes its knobs at the
-    first trace.  Factorizers are cached by their arguments and the knobs
-    read."""
+    column then takes.  ``super_block``, ``lookahead`` and ``defer`` are
+    :func:`mpf_factorize`'s.  Factorizers are cached by their arguments,
+    the variant arguments as resolved."""
     _check_policy(policy)
     return _make_mpf(n, r, policy, pivot, block, panel_kernel, donate,
-                     _knobs(super_block, lookahead, defer, pivot), device)
+                     *_options(lookahead, defer, pivot, super_block), device)
 
 
 @functools.lru_cache(maxsize=32)
 def _make_mpf(n: int, r: int, policy: PrecisionPolicy, pivot: bool, block, panel_kernel,
-              donate: bool, knobs: _Knobs, device):
+              donate: bool, lookahead: bool, defer: int, device):
     def fac(a) -> MPFResult:
         if not ((a.ndim == 2 and a.shape[1] == n and a.shape[0] >= n)
                 or tuple(a.shape) == (n // 2, 2, n)):
@@ -950,6 +883,6 @@ def _make_mpf(n: int, r: int, policy: PrecisionPolicy, pivot: bool, block, panel
         t = _as_tensor(a, device)
         if not (t is a and donate and t.dtype == policy.working and t.is_contiguous()):
             t = t.to(dtype=policy.working, copy=True).contiguous()
-        return _factorize_entry(t, r, policy, block, pivot, panel_kernel, knobs)
+        return _factorize_entry(t, r, policy, block, pivot, panel_kernel, lookahead, defer)
 
     return fac

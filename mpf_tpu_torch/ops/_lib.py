@@ -51,10 +51,10 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: The kernels, one wrapper each: 1-6 carry the fused path (12 in place of
-#: 3 for bf16 slabs, ALL_BF16; 11 in place of 4 under ``MPF_XCHG=split``;
-#: 13 for the lookahead driver's wide update; 14 for the deferred-overflow
-#: exchange), 5-9 the masked path (8b is kernel 8 without the inverses, for
-#: callers that need only the LU); 10 is on no driver path (tests only);
+#: 3 for bf16 slabs, ALL_BF16; 13 for the lookahead driver's wide update;
+#: 14 for the deferred-overflow exchange), 5-9 the masked path (8b is
+#: kernel 8 without the inverses, for callers that need only the LU); 10
+#: and 11 are on no driver path (tests and the smoke call only);
 #: 15a-15d carry the pair-layout (n/2, 2, n) driver beside 1-6; 16a-16k
 #: are the ``tools/`` design probes (``mpf_tpu_torch/tools``), on no driver
 #: path.

@@ -18,8 +18,9 @@
   shared memory.
 * :func:`rows_gather`, :func:`rows_scatter_inplace`,
   :func:`rows_scatter_from_band` (kernel 11, ``csrc/rows.cu``) — a gather of
-  arbitrary rows and an in-place row scatter: the split row exchange
-  (``MPF_XCHG=split``) and, later, the fused distributed path.
+  arbitrary rows and an in-place row scatter, on no driver path: tests
+  hold them against the JAX kernels and kernel 4, and they wait for the
+  fused distributed path.
 
 Every kernel takes fp32 or bf16 working storage (ALL_BF16) with the TPU
 kernels' round points: products of bf16 operands accumulate in fp32 and

@@ -1,8 +1,8 @@
 """Where one factorization's time goes on the card (torch.profiler).
 
     python -m mpf_tpu_torch.utils.profiling --n 16384 --corpus hpl_ai \\
-        [--policy mpf_bf16] [--no-pivot] [--lookahead] [--super S] \\
-        [--defer S] [--xchg split] [--pairs] [--runs 5] [--trace trace.json]
+        [--policy mpf_bf16] [--no-pivot] [--lookahead] [--defer S] \\
+        [--pairs] [--runs 5] [--trace trace.json]
 
 Runs one warm-up factorization, then, with ``--runs N``, N more timed with
 CUDA events on fresh copies (their median, each run, each run's host issue
@@ -11,11 +11,9 @@ time and the caching allocator's device allocations), then one under
 wall time, summed device time by kernel name, and the device's idle share
 (1 - busy time / the span from the first device activity to the last;
 work on one stream does not overlap).  ``--lookahead`` runs the one-deep
-lookahead driver, ``--super S`` superblocks of width S, ``--defer S`` the
-deferred-overflow exchange in groups of S block columns, ``--xchg split``
-the split row exchange (kernel 11; the CLI sets ``MPF_XCHG``, which
-``make_mpf`` reads when it builds), ``--pairs`` the pair-layout driver on
-the same matrix as an (n/2, 2, n) tensor.  The matrix (seed 0) is made on
+lookahead driver, ``--defer S`` the deferred-overflow exchange in groups
+of S block columns, ``--pairs`` the pair-layout driver on the same matrix
+as an (n/2, 2, n) tensor.  The matrix (seed 0) is made on
 the host (``matgen.hpl_ai_matrix`` / ``random_dense``) below n = 32768 and
 on the card above (``matgen.*_device``, as ``chip_smoke.py`` makes its n =
 65536 matrices: an fp64 host matrix of that size is 34 GB).  Needs a
@@ -26,7 +24,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import time
 
 import torch
@@ -38,10 +35,9 @@ _DEVICE_GEN_N = 32768
 def profile_factorization(n: int, corpus: str = "hpl_ai", r: int = 128,
                           trace: str | None = None, policy: str = "mpf_bf16",
                           pivot: bool = True, runs: int = 0, lookahead: bool = False,
-                          super_block="auto", defer=None, pairs: bool = False) -> dict:
-    """Profile one factorization; the exchange mode is the caller's
-    ``MPF_XCHG`` (:func:`mpf_tpu_torch.config.combined_exchange`)."""
-    from mpf_tpu_torch import config, make_mpf
+                          defer=None, pairs: bool = False) -> dict:
+    """Profile one factorization."""
+    from mpf_tpu_torch import make_mpf
     from mpf_tpu_torch.precision import POLICIES
     from mpf_tpu_torch.utils import matgen
     from mpf_tpu_torch.utils.timing import cuda_time
@@ -57,9 +53,7 @@ def profile_factorization(n: int, corpus: str = "hpl_ai", r: int = 128,
         a0 = torch.from_numpy(gen(n, seed=0)).cuda().to(pol.working)  # factored in place
     if pairs:
         a0 = a0.view(n // 2, 2, n)
-    fac = make_mpf(n, r=r, policy=pol, pivot=pivot, lookahead=lookahead,
-                   super_block=super_block, defer=defer)
-    xchg = "combined" if config.combined_exchange() else "split"
+    fac = make_mpf(n, r=r, policy=pol, pivot=pivot, lookahead=lookahead, defer=defer)
     fac(a0.clone())
     timed = {}
     if runs:
@@ -105,9 +99,8 @@ def profile_factorization(n: int, corpus: str = "hpl_ai", r: int = 128,
     span_ms = (last - first) / 1e3 if by_kernel else 0.0
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15])
     return {"n": n, "corpus": corpus, "policy": policy, "r": r, "pivot": pivot,
-            "lookahead": lookahead, "super_block": super_block, "defer": defer,
-            "xchg": xchg, "pairs": pairs, "device_gen": n >= _DEVICE_GEN_N, **timed,
-            "wall_ms": wall * 1e3,
+            "lookahead": lookahead, "defer": defer, "pairs": pairs,
+            "device_gen": n >= _DEVICE_GEN_N, **timed, "wall_ms": wall * 1e3,
             "device_busy_ms": busy_ms, "device_span_ms": span_ms,
             "idle_share": 1.0 - busy_ms / span_ms if span_ms else None,
             "kernels_ms": {k[:80]: round(v, 3) for k, v in top.items()},
@@ -122,18 +115,14 @@ def main() -> None:
                     choices=("mpf_bf16", "mpf_ref", "pure_fp32", "mpf_fp16", "all_bf16"))
     ap.add_argument("--no-pivot", action="store_true")
     ap.add_argument("--lookahead", action="store_true")
-    ap.add_argument("--super", type=int, default=None, dest="super_block")
     ap.add_argument("--defer", type=int, default=None)
-    ap.add_argument("--xchg", choices=("combined", "split"), default="combined")
     ap.add_argument("--pairs", action="store_true")
     ap.add_argument("--runs", type=int, default=0)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
-    os.environ["MPF_XCHG"] = args.xchg
     print(json.dumps(profile_factorization(args.n, args.corpus, trace=args.trace,
                                            policy=args.policy, pivot=not args.no_pivot,
                                            runs=args.runs, lookahead=args.lookahead,
-                                           super_block=args.super_block or "auto",
                                            defer=args.defer, pairs=args.pairs)))
 
 

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import mpf_tpu_torch.models.mpf as mpf_loop
 from mpf_tpu_torch import (
     ALL_BF16, MPF_BF16, MPF_FP16, MPF_REF, PURE_FP32, make_mpf, mpf_factorize)
 from mpf_tpu_torch.ops import _lib
@@ -829,14 +830,47 @@ def test_rows_kernels_exact(cuda, dtype):
 
 
 @pytest.mark.parametrize("policy", [MPF_BF16, PURE_FP32, ALL_BF16])
-def test_lookahead_split_superblock_on_card(cuda, policy, monkeypatch):
+def test_rows_kernels_move_kernel4_rows(cuda, policy, monkeypatch):
+    """On each fused block column's ``(glist, dests)`` of a factorization on
+    the card (uniform matrix, n = 2048, r = 128, block 512: 4 block
+    columns), kernel 11's gather and scatter from the band, then the band
+    write, leave the matrix and the pivot rows bitwise equal to kernel 4's;
+    the factorization goes on with kernel 4's result, bitwise the
+    unobserved one."""
+    real = mpf_loop._exchange
+    moved = []
+
+    def both(a, k, bc, stage, combined):
+        glist, dests = stage[2], stage[3]
+        x, y = a.clone(), a.clone()
+        g = rows_gather(x, glist)
+        rows_scatter_from_band(x, k, dests)
+        x[k:k + bc] = g
+        p = rows_exchange(y, k, glist, dests)
+        y[k:k + bc] = p
+        assert torch.equal(g, p) and torch.equal(x, y), k
+        moved.append(int(((dests < k) | (dests >= k + bc)).sum()))
+        real(a, k, bc, stage, combined)
+
+    a = torch.from_numpy(matgen.random_dense(2048, seed=5)).to(cuda)
+    classic = mpf_factorize(a, r=128, policy=policy, block=512)
+    monkeypatch.setattr(mpf_loop, "_exchange", both)
+    _lib.reset_counts()
+    res = mpf_factorize(a, r=128, policy=policy, block=512)
+    assert _lib.launches["rows_gather"] == _lib.launches["rows_scatter"] == 4
+    assert _lib.launches["rows_exchange"] == 8 and not any(_lib.plain_calls.values())
+    assert all(moved[:-1]), moved
+    assert torch.equal(res.lu, classic.lu) and torch.equal(res.perm, classic.perm)
+
+
+@pytest.mark.parametrize("policy", [MPF_BF16, PURE_FP32, ALL_BF16])
+def test_lookahead_on_card(cuda, policy):
     """n = 2048, block 512: lookahead launches kernel 13 twice (block
     columns 0 and 1; column 2's wide part is empty) and kernel 4 twice, with
     the pivots and row map of the classic loop on the card, LU within the
     oracle bound times max |LU| (tests/test_lookahead.py's bar: the narrow
     and wide U12 are cuBLAS products of other shapes) and the device
-    oracle; MPF_XCHG=split is bitwise the combined route with kernel 11 and no
-    kernel 4; superblock S = 1024 passes the device oracle."""
+    oracle."""
     n = 2048
     a = _hpl(n, 10, cuda)
     tol = 5e-2 if policy is ALL_BF16 else (1e-3 if policy is MPF_BF16 else 1e-5)
@@ -849,15 +883,6 @@ def test_lookahead_split_superblock_on_card(cuda, policy, monkeypatch):
     d = float((la.lu.float() - classic.lu.float()).abs().max())
     assert d <= tol * float(classic.lu.float().abs().max()), d
     assert check_factorization_device(a, la.lu, la.ipiv, nbe_tol=tol).ok
-    monkeypatch.setenv("MPF_XCHG", "split")
-    _lib.reset_counts()
-    sp = mpf_factorize(a, r=128, policy=policy, block=512)
-    monkeypatch.delenv("MPF_XCHG")
-    assert _lib.launches["rows_gather"] == _lib.launches["rows_scatter"] == 4
-    assert _lib.launches["rows_exchange"] == 0
-    assert torch.equal(sp.lu, classic.lu) and torch.equal(sp.perm, classic.perm)
-    sb = mpf_factorize(a, r=128, policy=policy, block=512, super_block=1024)
-    assert check_factorization_device(a, sb.lu, sb.ipiv, nbe_tol=tol).ok
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF])

@@ -4,7 +4,7 @@
 the JAX package's kernels in interpret mode, kernel 10's plain version
 (:func:`panel_apply_update_plain`) against the JAX kernel and the port's
 trimmed B, the deferred driver against the port's classic loop on the
-cases of tests/test_defer.py, its routing, the ``MPF_DEFER`` knobs and the
+cases of tests/test_defer.py, its routing, ``defer_extension`` and the
 device generators' ``ext_rows``.  Inputs come from numpy with fixed seeds;
 each test states its tolerance.  No kernel launches on the CPU."""
 
@@ -22,7 +22,6 @@ from mpf_tpu.ops.panel_strip import strip_panel_pivots as j_strip  # noqa: E402
 from mpf_tpu.utils import matgen  # noqa: E402
 
 import mpf_tpu_torch as T  # noqa: E402
-from mpf_tpu_torch import config  # noqa: E402
 from mpf_tpu_torch.models import mpf as TM  # noqa: E402
 from mpf_tpu_torch.ops import _lib, panel_strip  # noqa: E402
 from mpf_tpu_torch.ops.exchange import copy_rows_block, flush_overflow  # noqa: E402
@@ -299,22 +298,16 @@ def test_defer_pre_extended_in_place():
     assert torch.equal(fac(torch.from_numpy(a)).lu, ref.lu)
 
 
-@pytest.mark.parametrize("variant", ["lookahead", "superblock", "split", "mpf_fp16",
-                                     "no_pivot", "ragged_n"])
-def test_defer_routing_resolves_off(monkeypatch, variant):
+@pytest.mark.parametrize("variant", ["lookahead", "mpf_fp16", "no_pivot", "ragged_n"])
+def test_defer_routing_resolves_off(variant):
     """Where the JAX gate would not defer, ``defer=2`` runs without it
-    (`mpf.py:1059-1109`): lookahead wins, a superblock, ``MPF_XCHG=split``,
-    MPF_FP16 (masked), ``pivot=False`` and n % block != 0 resolve to 0, so
-    no band copy or flush runs."""
+    (`mpf.py:1059-1109`): lookahead wins, MPF_FP16 (masked), ``pivot=False``
+    and n % block != 0 resolve to 0, so no band copy or flush runs."""
     n = 448 if variant == "ragged_n" else 512
     a = torch.from_numpy(matgen.hpl_ai_matrix(n, seed=8).astype(np.float32))
     kw = dict(r=32, block=128, defer=2)
     if variant == "lookahead":
         kw["lookahead"] = True
-    elif variant == "superblock":
-        kw["super_block"] = 256
-    elif variant == "split":
-        monkeypatch.setenv("MPF_XCHG", "split")
     elif variant == "mpf_fp16":
         kw["policy"] = T.MPF_FP16
     elif variant == "no_pivot":
@@ -343,36 +336,34 @@ def test_row_extended_input_that_does_not_resolve_raises():
         T.make_mpf(512, r=32, block=128, defer=2)(torch.zeros(512, 256))
 
 
-def test_defer_extension_and_env(monkeypatch):
+def test_defer_extension():
     """``defer_extension`` (`mpf.py:937-946`): S·block rows where the gate
-    holds, 0 where it does not; ``MPF_DEFER=S``, ``defer=True`` with
-    ``MPF_DEFER_S`` and ``auto`` with ``MPF_DEFER_AUTO_S`` (kept only for
-    bf16 working storage at n >= 49152); make_mpf reads the knobs once."""
+    holds, 0 where it does not; ``defer=True`` is S = 8 (8·block rows);
+    None, False and 0 are off, at any size and storage.  ``defer=True``
+    factors with the classic loop's pivots and factors (its 4 block columns
+    one group: 4 band copies, 1 flush), and make_mpf keeps its ``defer``."""
     ext = TM.defer_extension
     assert ext(16384, defer=8) == 8192 and ext(16384, defer=False) == 0
     assert ext(1024, defer=8) == 0                 # n < 2 block
     assert ext(16384, policy=T.MPF_FP16, defer=8) == 0
     assert ext(16384, block=1000, defer=8) == 0    # n % block
     assert ext(16384, defer=8, pivot=False) == 0
-    monkeypatch.setenv("MPF_DEFER_S", "3")
-    assert ext(16384, defer=True) == 3072
-    monkeypatch.setenv("MPF_DEFER", "auto")
-    assert ext(65536, policy=T.ALL_BF16) == 0      # MPF_DEFER_AUTO_S unset
-    monkeypatch.setenv("MPF_DEFER_AUTO_S", "8")
-    assert ext(65536, policy=T.ALL_BF16) == 8192
-    assert ext(32768, policy=T.ALL_BF16) == 0 and ext(65536) == 0
-    monkeypatch.setenv("MPF_DEFER", "0")
-    assert config.resolve_defer() == 0 and ext(65536, policy=T.ALL_BF16) == 0
-    monkeypatch.setenv("MPF_DEFER", "2")
-    assert config.resolve_defer() == 2 and config.resolve_defer(False) == 0
+    assert ext(16384, defer=True) == 8192 and ext(16384, block=512, defer=True) == 4096
+    assert ext(16384, defer=True, pivot=False) == 0
+    for off in (None, False, 0):
+        assert ext(16384, defer=off) == 0 and ext(65536, policy=T.ALL_BF16, defer=off) == 0
     a = torch.from_numpy(matgen.hpl_ai_matrix(512, seed=9).astype(np.float32))
+    ref = T.mpf_factorize(a, r=32, block=128)
     _lib.reset_counts()
-    T.mpf_factorize(a, r=32, block=128)
-    assert _lib.plain_calls["flush_overflow"] == 2
-    fac = T.make_mpf(512, r=32, block=128)
-    monkeypatch.setenv("MPF_DEFER", "0")
+    res = T.mpf_factorize(a, r=32, block=128, defer=True)
+    assert _lib.plain_calls["flush_overflow"] == 1 and _lib.plain_calls["copy_rows"] == 4
+    assert torch.equal(res.ipiv, ref.ipiv) and torch.equal(res.lu, ref.lu)
+    assert not any(_lib.launches.values())
+    fac = T.make_mpf(512, r=32, block=128, defer=2)
     fac(a.clone())
-    assert _lib.plain_calls["flush_overflow"] == 4
+    assert _lib.plain_calls["flush_overflow"] == 3
+    T.mpf_factorize(a, r=32, block=128)
+    assert _lib.plain_calls["flush_overflow"] == 3
 
 
 @pytest.mark.parametrize("which", ["hpl_ai", "uniform"])

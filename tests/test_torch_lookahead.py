@@ -141,25 +141,23 @@ def test_lookahead_with_pad_wrapper():
     assert check_factorization(a, la.lu.numpy(), la.ipiv.numpy(), nbe_tol=1e-3).ok
 
 
-def test_lookahead_env_knob_and_make_mpf(monkeypatch):
-    """MPF_LOOKAHEAD=1 turns the driver on for mpf_factorize (read at each
-    call) and for make_mpf (read once, when it builds: a factorizer built
-    with the knob set keeps it after the knob is cleared); an explicit
-    ``lookahead=False`` wins over the knob; no kernel is launched on CPU
+def test_make_mpf_keeps_lookahead():
+    """``lookahead=True`` given to make_mpf: the factorizer keeps it (one
+    kernel-13 call a factorization, factors bitwise mpf_factorize's with
+    ``lookahead=True``), and ``None`` and ``False``, which resolve alike,
+    give the one cached classic factorizer; no kernel is launched on CPU
     tensors."""
     a = torch.from_numpy(matgen.hpl_ai_matrix(384, seed=8).astype(np.float32))
-    monkeypatch.setenv("MPF_LOOKAHEAD", "1")
     _lib.reset_counts()
-    res = T.mpf_factorize(a, r=32, block=128)
+    res = T.mpf_factorize(a, r=32, block=128, lookahead=True)
     assert _lib.plain_calls["gemmx"] == 1
-    T.mpf_factorize(a, r=32, block=128, lookahead=False)
-    assert _lib.plain_calls["gemmx"] == 1
-    fac = T.make_mpf(384, r=32, block=128, donate=False)
-    monkeypatch.delenv("MPF_LOOKAHEAD")
-    T.mpf_factorize(a, r=32, block=128)
-    assert _lib.plain_calls["gemmx"] == 1
+    fac = T.make_mpf(384, r=32, block=128, donate=False, lookahead=True)
     kept = fac(a)
     assert _lib.plain_calls["gemmx"] == 2 and torch.equal(kept.lu, res.lu)
-    T.make_mpf(384, r=32, block=128, donate=False)(a)
+    off = T.make_mpf(384, r=32, block=128, donate=False, lookahead=None)
+    assert off is T.make_mpf(384, r=32, block=128, donate=False, lookahead=False)
+    off(a)
+    T.mpf_factorize(a, r=32, block=128)
     assert _lib.plain_calls["gemmx"] == 2
+    assert torch.equal(fac(a).lu, res.lu) and _lib.plain_calls["gemmx"] == 3
     assert not any(_lib.launches.values())

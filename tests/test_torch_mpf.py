@@ -2,6 +2,8 @@
 kernels on CPU tensors) against the JAX package's mpf_factorize on the
 CPU, on the same numpy-generated matrices."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -154,25 +156,81 @@ def test_outside_the_slice_raises(kwargs, what):
     assert int(T.mpf_factorize(torch.eye(96), **{"r": 8, **kwargs}).info) == 0
 
 
-@pytest.mark.parametrize("kwargs,kernel", [
-    (dict(lookahead=True), "gemmx"),
-    (dict(super_block=256), "tri_inv"),
-])
-def test_lookahead_and_superblock_run(kwargs, kernel):
-    """``lookahead`` and ``super_block`` are ported: on the HPL-AI matrix
-    (n = 512, r = 32, block 128) each factors with the classic loop's
-    pivots, passes the oracle at 1e-3, and runs its own work (kernel 13;
-    kernel 5 once for each of the two mid updates with columns left and
-    once for each of the far update's two inner blocks: 4 against the
-    classic loop's 3)."""
+def test_lookahead_runs():
+    """``lookahead`` is ported: on the HPL-AI matrix (n = 512, r = 32,
+    block 128) it factors with the classic loop's pivots, passes the oracle
+    at 1e-3, and runs its own work (kernel 13, twice)."""
     n = 512
     a = matgen.hpl_ai_matrix(n, seed=15).astype(np.float32)
     ref = T.mpf_factorize(torch.from_numpy(a), r=32, block=128)
     _lib.reset_counts()
-    res = T.mpf_factorize(torch.from_numpy(a), r=32, block=128, **kwargs)
-    assert _lib.plain_calls[kernel] == {"gemmx": 2, "tri_inv": 4}[kernel]
+    res = T.mpf_factorize(torch.from_numpy(a), r=32, block=128, lookahead=True)
+    assert _lib.plain_calls["gemmx"] == 2
     assert torch.equal(res.ipiv, ref.ipiv) and torch.equal(res.perm, ref.perm)
     assert check_factorization(a, res.lu.numpy(), res.ipiv.numpy(), nbe_tol=1e-3).ok
+
+
+@pytest.mark.parametrize("env,kwargs", [
+    ({"MPF_XCHG": "split"}, {}),
+    ({"MPF_LOOKAHEAD": "1"}, {}),
+    ({"MPF_SUPER": "256"}, {}),
+    ({"MPF_DEFER": "2"}, {}),
+    ({"MPF_DEFER_S": "3"}, {"defer": True}),
+    ({"MPF_DEFER": "auto", "MPF_DEFER_AUTO_S": "8"}, {}),
+], ids=["xchg_split", "lookahead", "super", "defer", "defer_s", "defer_auto_s"])
+def test_environment_does_not_route(env, kwargs, monkeypatch):
+    """The driver reads no environment: with each variable that once routed
+    it set, ``mpf_factorize`` and a freshly built ``make_mpf`` factorizer
+    call the same plain versions as often, and give the same bits, as in an
+    environment without them (uniform matrix, n = 512, r = 32, block 128,
+    so that rows move in every block column)."""
+    a = torch.from_numpy(matgen.random_dense(512, seed=16).astype(np.float32))
+
+    def factor():
+        TM._make_mpf.cache_clear()
+        _lib.reset_counts()
+        out = (T.mpf_factorize(a, r=32, block=128, **kwargs),
+               T.make_mpf(512, r=32, block=128, donate=False, **kwargs)(a))
+        return out, dict(_lib.plain_calls)
+
+    for key in [k for k in os.environ if k.startswith("MPF_")]:
+        monkeypatch.delenv(key)
+    clean, clean_calls = factor()
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    got, calls = factor()
+    TM._make_mpf.cache_clear()
+    assert calls == clean_calls
+    for res, ref in zip(got, clean):
+        for x, y in zip(res, ref):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("entry", ["mpf_factorize", "mpf_factorize_inplace", "make_mpf"])
+def test_superblock_width_refused(entry):
+    """The port has no superblock driver: each entry point refuses a
+    ``super_block`` width with ValueError before any work, and takes
+    ``"auto"`` and None, which factor as a call without the argument, also
+    beside ``lookahead=None`` and ``defer=None`` (the arguments the
+    benchmark's configurations pass)."""
+    n = 256
+    a = torch.from_numpy(matgen.hpl_ai_matrix(n, seed=17).astype(np.float32))
+    call = {
+        "mpf_factorize": lambda **kw: T.mpf_factorize(a, **kw),
+        "mpf_factorize_inplace": lambda **kw: TM.mpf_factorize_inplace(a.clone(), **kw),
+        "make_mpf": lambda **kw: T.make_mpf(n, donate=False, **kw)(a),
+    }[entry]
+    _lib.reset_counts()
+    with pytest.raises(ValueError, match="super_block=128"):
+        call(r=32, block=64, super_block=128)
+    assert not any(_lib.plain_calls.values())
+    ref = call(r=32, block=64)
+    variants = [dict(super_block="auto"), dict(super_block=None),
+                dict(lookahead=None, super_block="auto", defer=None)]
+    for kw in variants:
+        res = call(**{"r": 32, "block": 64, **kw})
+        for x, y in zip(res, ref):
+            assert torch.equal(x, y), kw
 
 
 def test_policy_working_dtype_checked():

@@ -31,7 +31,6 @@ Runs on one torch thread, as ``test_torch_hgetf2_order.py`` does."""
 
 import dataclasses
 import functools
-import os
 
 import pytest
 import torch
@@ -71,12 +70,6 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-@pytest.fixture(autouse=True)
-def _no_knobs(monkeypatch):
-    for key in [k for k in os.environ if k.startswith("MPF_")]:
-        monkeypatch.delenv(key)
 
 
 def _saturating(kind: str, n: int) -> torch.Tensor:

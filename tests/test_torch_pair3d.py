@@ -252,17 +252,15 @@ def _raises(fn, match):
 
 
 @pytest.mark.parametrize("case", ["bad_shape", "pivot_false", "mpf_fp16", "lookahead",
-                                  "defer", "superblock", "split_exchange", "ragged_block",
-                                  "panel_kernel", "make_mpf_shape"])
-def test_pair3d_gate_and_shape_errors(case, monkeypatch):
+                                  "defer", "ragged_block", "panel_kernel", "make_mpf_shape"])
+def test_pair3d_gate_and_shape_errors(case):
     """JAX's two messages (`mpf.py:984-1014`): a 3D shape that is not
     (n/2, 2, n) raises "expected (n/2, 2, n) pair layout"; a request off
     the fused path raises "pair-layout (3D) input requires the fused kernel
     path" — ``pivot=False`` (the ``test_pair3d_requires_fused_path``
     case), MPF_FP16 (its panel cast saturates), lookahead, the deferred
-    exchange, a superblock, ``MPF_XCHG=split``, n not a multiple of block
-    and a ``panel_kernel``.  A factorizer of another size names the pair
-    layout it takes."""
+    exchange, n not a multiple of block and a ``panel_kernel``.  A
+    factorizer of another size names the pair layout it takes."""
     z = torch.zeros(N // 2, 2, N)
     fused_path = "pair-layout \\(3D\\) input requires the fused kernel path"
     run = {
@@ -274,17 +272,12 @@ def test_pair3d_gate_and_shape_errors(case, monkeypatch):
                      fused_path),
         "lookahead": (lambda: T.mpf_factorize(z, r=R, block=BLOCK, lookahead=True), fused_path),
         "defer": (lambda: T.mpf_factorize(z, r=R, block=BLOCK, defer=2), fused_path),
-        "superblock": (lambda: T.mpf_factorize(torch.zeros(256, 2, 512), r=R, block=BLOCK,
-                                               super_block=256), fused_path),
-        "split_exchange": (lambda: T.mpf_factorize(z, r=R, block=BLOCK), fused_path),
         "ragged_block": (lambda: T.mpf_factorize(z, r=R, block=256), fused_path),
         "panel_kernel": (lambda: T.make_mpf(N, r=R, block=BLOCK, panel_kernel=print)(z),
                          fused_path),
         "make_mpf_shape": (lambda: T.make_mpf(N, r=R, block=BLOCK)(torch.zeros(N, 2, N)),
                            "pair layout \\(192, 2, 384\\)"),
     }
-    if case == "split_exchange":
-        monkeypatch.setenv("MPF_XCHG", "split")
     _lib.reset_counts()
     _raises(*run[case])
     assert not any(_lib.plain_calls.values())
@@ -309,18 +302,22 @@ def test_pair_generators(gen):
 
 # ------------------------------------------------ no matrix left behind
 
-@pytest.mark.parametrize("driver", ["classic", "pairs", "lookahead", "defer", "superblock",
-                                    "masked"])
+@pytest.mark.parametrize("driver", ["classic", "pairs", "lookahead", "defer", "masked",
+                                    "all_bf16", "padded"])
 def test_factored_matrix_is_freed_without_gc(driver):
     """Dropping the result and the input frees the matrix at once, with
     Python's cyclic collector off: no reference cycle holds it.  (The
     recursive inverse of ``unit_lower_inv_blocked`` was a closure that
     called itself, a cycle that kept a view of the whole matrix alive
     until the collector ran: on the card 5.5-6.45 GiB of device memory at
-    n = 65536.)"""
-    n = 512
+    n = 65536.)  ``all_bf16`` builds the factorizer with the n = 65536
+    cells' variant arguments (``benchmark_torch/configs``); ``padded``
+    factors n = 500 through the pad wrapper, whose padded copy is freed
+    too."""
+    n = 500 if driver == "padded" else 512
     kw = dict(classic={}, pairs={}, lookahead=dict(lookahead=True), defer=dict(defer=2),
-              superblock=dict(super_block=256), masked=dict(block=48))[driver]
+              masked=dict(block=48), padded={},
+              all_bf16=dict(lookahead=None, super_block="auto", defer=None))[driver]
     a = torch.from_numpy(matgen.hpl_ai_matrix(n, seed=1)).to(torch.bfloat16)
     if driver == "pairs":
         a = a.view(n // 2, 2, n)
@@ -330,8 +327,10 @@ def test_factored_matrix_is_freed_without_gc(driver):
     gc.disable()
     try:
         res = fac(a)
-        assert res.lu.data_ptr() == a.data_ptr() or driver == "defer"
+        assert res.lu.data_ptr() == a.data_ptr() or driver in ("defer", "padded")
+        pad = weakref.ref(res.lu._base) if driver == "padded" else None
         del res, a
         assert ref() is None
+        assert pad is None or pad() is None
     finally:
         gc.enable()

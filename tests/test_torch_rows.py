@@ -2,8 +2,9 @@
 gather / scatter (`ops/panel_fused.py`) and of its trailing GEMM with the
 row exchange inside it (`ops/gemmx.py`) against the JAX package's Pallas
 kernels in interpret mode, as its own tests run them
-(`tests/test_gemmx.py`).  Inputs come from numpy with fixed seeds; each
-test states its tolerance."""
+(`tests/test_gemmx.py`), and kernel 11's gather and scatter from the band
+against kernel 4 on a factorization's own row maps.  Inputs come from
+numpy with fixed seeds; each test states its tolerance."""
 
 import numpy as np
 import pytest
@@ -11,6 +12,7 @@ import torch
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
+from mpf_tpu.utils import matgen  # noqa: E402
 
 from mpf_tpu.ops.gemmx import gemm_trailing as j_gemm_trailing  # noqa: E402
 from mpf_tpu.ops.panel_fused import (  # noqa: E402
@@ -19,8 +21,10 @@ from mpf_tpu.ops.panel_fused import (  # noqa: E402
     rows_scatter_inplace as j_scatter,
 )
 
+import mpf_tpu_torch as T  # noqa: E402
+from mpf_tpu_torch.models import mpf as TM  # noqa: E402
 from mpf_tpu_torch.ops import _lib  # noqa: E402
-from mpf_tpu_torch.ops.exchange import rows_exchange_plain  # noqa: E402
+from mpf_tpu_torch.ops.exchange import rows_exchange, rows_exchange_plain  # noqa: E402
 from mpf_tpu_torch.ops.gemmx import gemm_trailing, gemm_trailing_plain  # noqa: E402
 from mpf_tpu_torch.ops.panel_fused import (  # noqa: E402
     rows_gather, rows_scatter_from_band, rows_scatter_inplace, trailing_gemm_sub_plain)
@@ -177,3 +181,42 @@ def test_rows_scatter_from_band_matches_jax(dt):
     t = rows_scatter_from_band(_t(a, tdt), k, torch.from_numpy(dests))
     assert _lib.plain_calls["rows_scatter"] == 1 and not any(_lib.launches.values())
     assert (_np32(t) == j).all()
+
+
+@pytest.mark.parametrize("policy", [T.MPF_BF16, T.ALL_BF16, T.PURE_FP32],
+                         ids=["mpf_bf16", "all_bf16", "pure_fp32"])
+@pytest.mark.parametrize("gen", [matgen.hpl_ai_matrix, matgen.random_dense],
+                         ids=["hpl_ai", "uniform"])
+def test_split_pair_moves_kernel4_rows(policy, gen, monkeypatch):
+    """On each fused block column's ``(glist, dests)`` of a factorization
+    (n = 512, r = 32, block 128: 4 block columns), kernel 11's gather
+    followed by its scatter from the band and the band write leaves the
+    matrix, and returns pivot rows, bitwise equal to kernel 4's
+    (:func:`rows_exchange`); the factorization goes on with kernel 4's
+    result.  Plain versions on the CPU, no launch; on the uniform matrix
+    rows leave the band in every block column but the last, which has no
+    rows below it."""
+    real = TM._exchange
+    moved = []
+
+    def both(a, k, bc, stage, combined):
+        glist, dests = stage[2], stage[3]
+        x, y = a.clone(), a.clone()
+        g = rows_gather(x, glist)
+        rows_scatter_from_band(x, k, dests)
+        x[k:k + bc] = g
+        p = rows_exchange(y, k, glist, dests)
+        y[k:k + bc] = p
+        assert torch.equal(g, p) and torch.equal(x, y), k
+        moved.append(int(((dests < k) | (dests >= k + bc)).sum()))
+        real(a, k, bc, stage, combined)
+
+    monkeypatch.setattr(TM, "_exchange", both)
+    a = torch.from_numpy(gen(512, seed=5).astype(np.float32))
+    _lib.reset_counts()
+    T.mpf_factorize(a, r=32, policy=policy, block=128)
+    assert len(moved) == 4
+    assert _lib.plain_calls["rows_gather"] == _lib.plain_calls["rows_scatter"] == 4
+    assert _lib.plain_calls["rows_exchange"] == 8 and not any(_lib.launches.values())
+    if gen is matgen.random_dense:
+        assert all(moved[:-1]), moved

@@ -1,18 +1,18 @@
 """The block-column loop's stage spans (`_lib.span`) and counters on every
 driver route, on the CPU at n = 256 (block 64, r = 32: 4 block columns of
-2 r-panels).
+2 r-panels; the padded route factors n = 250 as its n = 256 extension).
 
 Under ``torch.profiler`` each stage is a ``record_function`` range: the
 counts below follow from the route and the shape, ``mpf.update`` (and on
 the masked path ``mpf.prepivot``, ``mpf.swap`` and ``mpf.npv``) sits in
 ``mpf.panel``, and every operator of the factorization but the set-up
-before the loop lies inside a stage; on the masked path every operator of
+before the loop (and the pad wrapper's slicing after it) lies inside a
+stage; on the masked path every operator of
 an r-panel lies in one of its four stages.  With no profiler recording no
 range is built, and the factors are the same bits either way."""
 
 import collections
 import functools
-import os
 
 import pytest
 import torch
@@ -31,6 +31,14 @@ DEFER_SETUP = {"aten::arange": 3, "aten::zeros": 1, "aten::empty": 1, "aten::sli
                "aten::copy_": 1, "aten::full": 1, "aten::cat": 1}
 #: the pair layout's (n, n) view of the (n/2, 2, n) input
 PAIRS_SETUP = dict(SETUP, **{"aten::view": 1})
+#: the pad wrapper: before the loop the padded buffer (zeros), the input's
+#: copy into it (slice, copy_) and the unit diagonal of the pad rows
+#: (arange, lift_fresh, index_put_); after it the slices back to n and the
+#: clamp of ``info`` (gt, zeros_like, where)
+PAD_N = 250
+PAD_SETUP = {"aten::arange": 3, "aten::zeros": 2, "aten::slice": 6, "aten::copy_": 1,
+             "aten::lift_fresh": 1, "aten::index_put_": 1, "aten::gt": 1,
+             "aten::zeros_like": 1, "aten::where": 1}
 
 #: the stages of a block column that sit inside its ``mpf.panel``
 PANEL_STAGES = ("mpf.update", "mpf.prepivot", "mpf.swap", "mpf.npv")
@@ -46,8 +54,7 @@ MASKED = dict(prepivot=NPANELS, swap=NPANELS, npv=NPANELS)
 #: route -> (policy, options, path, setup, stage counts).  Updates follow
 #: every block column but the last (3); the lookahead driver splits the
 #: first two at the next block column's edge (3 narrow + 2 wide); the
-#: superblock driver (S = 128) runs a mid update in block columns 0 and 2
-#: and one far update; the deferred exchange (groups of 2) adds a flush a
+#: deferred exchange (groups of 2) adds a flush a
 #: group to the 4 exchanges; an unpivoted block column exchanges no rows,
 #: and its r-panels search no pivots and swap no rows.
 ROUTES = {
@@ -61,9 +68,8 @@ ROUTES = {
                   dict(exchange=4, u12=5, trailing=5)),
     "deferred": (T.MPF_BF16, {"defer": 2}, "fused", DEFER_SETUP,
                  dict(exchange=6, u12=3, trailing=3)),
-    "superblock": (T.MPF_BF16, {"super_block": 128}, "fused", SETUP,
-                   dict(exchange=4, u12=3, trailing=3)),
     "pairs": (T.MPF_BF16, {}, "fused", PAIRS_SETUP, dict(exchange=4, u12=3, trailing=3)),
+    "padded": (T.MPF_BF16, {}, "fused", PAD_SETUP, dict(exchange=4, u12=3, trailing=3)),
 }
 
 
@@ -77,16 +83,12 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(autouse=True)
-def _no_knobs(monkeypatch):
-    for key in [k for k in os.environ if k.startswith("MPF_")]:
-        monkeypatch.delenv(key)
-
-
 def _matrix(route):
     """U[0, 1): pivots move on nearly every column, so every stage works."""
     pol = ROUTES[route][0]
     g = torch.Generator().manual_seed(7)
+    if route == "padded":
+        return torch.rand(PAD_N, PAD_N, generator=g).to(pol.working)
     a = torch.rand(N, N, generator=g).to(pol.working)
     return a.view(N // 2, 2, N) if route == "pairs" else a
 
@@ -139,9 +141,12 @@ def test_span_tree(route):
         else:  # the stages of a block column do not nest in one another
             assert not _has_span_ancestor(e), e.name
     first = min(e.time_range.start for e in spans)
+    last = max(e.time_range.end for e in spans)
     outside = [e for e in events if e.name.startswith("aten::") and not _has_span_ancestor(e)]
-    # operators outside every stage are the set-up, all before the loop
-    assert all(e.time_range.end <= first for e in outside)
+    # operators outside every stage are the set-up before the loop (and
+    # the pad wrapper's slicing after it)
+    assert all(e.time_range.end <= first or (route == "padded" and e.time_range.start >= last)
+               for e in outside)
     top = [e for e in outside
            if e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::")]
     assert collections.Counter(e.name for e in top) == setup
@@ -192,8 +197,7 @@ def test_masked_kernel_calls(route):
     assert not any(launches.values())
 
 
-@pytest.mark.parametrize("route", ["fused_mpf_bf16", "masked_mpf_fp16", "lookahead",
-                                   "deferred", "superblock", "pairs"])
+@pytest.mark.parametrize("route", ROUTES)
 def test_no_range_built_without_a_profiler(route, monkeypatch):
     want = _traced(route)[1]
 
