@@ -50,6 +50,12 @@ Phases, one line each:
      shared memory, the wrapper's choice; C in registers) bitwise equal at
      15360^2 x 1024 and timed in turns there and at 64512^2 x 1024, C
      through shared memory required faster than C in registers at 15360;
+  2h. (run after 2c) kernel 17, the trailing update's U12 under bf16
+     storage, at (1024 x 1024) @ (1024 x w), w = 64512, 31744, 1024, on a
+     view of a wider matrix: within one bf16 ulp plus sum_slack of its plain
+     version and at least 99.9% bit-equal, the matrix untouched; timed,
+     and on the device alone, beside its bound, the plain version (the IEEE
+     fp32 cuBLAS route) and PyTorch's bf16 matmul;
   3. the fused path: mpf_factorize at n = 16384, MPF_BF16, r = 128 on the
      HPL-AI matrix and on the uniform (pivot-heavy) matrix: device fp64
      oracle (nbe <= 1e-3), perm consistent with ipiv, kernels 1-6 launched
@@ -61,7 +67,7 @@ Phases, one line each:
      identity, nbe <= 1e-5);
   5. ALL_BF16 (bf16 working storage) on the fused path at n = 16384 on both
      matrices: device oracle (nbe <= 5e-2), the exact launch counts of
-     kernels 1, 2, 12, 4, 5, 6 and no other, every launch of kernel 6 with
+     kernels 1, 2, 12, 4, 5, 6, 17 and no other, every launch of kernel 6 with
      C through shared memory (``_lib.trailing_instances``), median of 3
      beside phase 3's;
   5b. ALL_BF16 at n = 65536 (HPL-AI made on the card in bf16): one timed
@@ -182,7 +188,7 @@ MASKED = ("tri_inv", "trailing_sub", "hgetf2", "npv_inv", "laswp")
 # diagonal is PyTorch ops, not kernel 8
 FUSED_BF16 = ("strip_pivots", "rowblock", "l21_trim", "upd_wide", "rows_exchange",
               "tri_inv", "trailing_sub")
-MASKED_BF16 = ("tri_inv", "trailing_sub", "hgetf2", "laswp")
+MASKED_BF16 = ("tri_inv", "trailing_sub", "hgetf2", "laswp", "u12_product")
 ROWS11 = ("rows_gather", "rows_scatter")  # kernel 11, on no driver path
 DEFER = ("copy_rows", "flush_overflow")  # kernel 14, the deferred exchange
 DEFER_S = 8                              # its group size in phases 7 and 7b
@@ -220,12 +226,17 @@ def fused_counts(n: int, r: int, bc: int, bf16: bool = False, lookahead: bool = 
     copy in every block column and its flush once a group.  Pair layout:
     every block column one slab extract, one writeback and one band write
     beside its kernel 4, and every block column but the last one in-place
-    U12 beside its kernels 5 and 6."""
+    U12 beside its kernels 5 and 6.  Under ALL_BF16 every U12 product of
+    the trailing updates is kernel 17: one for every block column but the
+    last, and with lookahead one more for each wide part; the pair layout
+    computes its U12 in place (15d) instead."""
     panels, cols = n // r, n // bc
     c = {"strip_pivots": panels, "rowblock": panels, "rows_exchange": cols,
          "tri_inv": cols - 1, "trailing_sub": cols - 1}
     if bf16:
         c.update(l21_trim=panels, upd_wide=panels - cols)
+        if not pairs:
+            c["u12_product"] = cols - 1 + (cols - 2 if lookahead else 0)
     else:
         c["panel_update"] = panels
     if lookahead:
@@ -302,7 +313,8 @@ def main() -> int:
     from mpf_tpu_torch.ops import _lib
     from mpf_tpu_torch.models.mpf import _factor_block_column_fused
     from mpf_tpu_torch.ops.blas3 import (
-        _leaves, tri_inv_leaves, tri_inv_leaves_plain, unit_lower_inv_blocked)
+        _leaves, tri_inv_leaves, tri_inv_leaves_plain, u12_product,
+        u12_product_plain, unit_lower_inv_blocked)
     from mpf_tpu_torch.ops.exchange import (
         copy_rows_block, copy_rows_block_plain, flush_overflow, flush_overflow_plain,
         rows_exchange, rows_exchange3, rows_exchange_plain)
@@ -343,9 +355,11 @@ def main() -> int:
     # the FFMA routine's kernels (kernel 6 and 13, 16- and 4-byte copies),
     # the L21 pass of kernels 3 and 12 (fp32 and bf16, TMA and copies) and
     # kernel 5 (fp32, bf16): what ptxas -v said of their registers, and no
-    # spill; the Hopper routine's kernels (6, and 12's update pass) printed
+    # spill; the Hopper routine's kernels (6, 12's update pass and 17)
+    # printed
     want_regs = {"ffma": 4, "l21_kernel": 4, "tri_inv_kernel": 2}
-    regs = {pat: _lib.ptxas_report(pat) for pat in (*want_regs, "trailing_kernel")}
+    regs = {pat: _lib.ptxas_report(pat)
+            for pat in (*want_regs, "trailing_kernel", "u12_product_kernel")}
     for pat, rep in regs.items():
         for name, v in sorted(rep.items()):
             print(f"[INFO] ptxas {name}: {json.dumps(v)}", flush=True)
@@ -401,6 +415,7 @@ def main() -> int:
         "slab_writeback": "mpf_tpu/ops/pair3d.py:113",
         "band_write": "mpf_tpu/ops/pair3d.py:205",
         "u12_inplace": "mpf_tpu/ops/pair3d.py:281",
+        "u12_product": "no pallas_call: mpf_tpu/models/mpf.py:545 (jnp.dot)",
         **PROBES,
     }
     source = {
@@ -422,6 +437,7 @@ def main() -> int:
         "copy_rows": "mpf_tpu_torch/csrc/overflow.cu",
         "flush_overflow": "mpf_tpu_torch/csrc/overflow.cu",
         "panel_update_full": "mpf_tpu_torch/csrc/panel_update_full.cu",
+        "u12_product": "mpf_tpu_torch/csrc/u12.cu",
         **{k: "mpf_tpu_torch/csrc/pair3d.cu" for k in PAIRS},
         **{k: "mpf_tpu_torch/csrc/probes.cu" for k in PROBES},
         "probe_overlap": "mpf_tpu_torch/csrc/probes_gemm.cu",
@@ -1169,6 +1185,53 @@ def main() -> int:
     del l21, u12, hpl_b, slab0_b, uni_b
     torch.cuda.empty_cache()
 
+    # ---------------- phase 2h: kernel 17, U12 under bf16 storage ----------
+    # (1024 x 1024) @ (1024 x w) for the widths of n = 65536's first block
+    # column, of n = 32768's and of the last but one: linv the blocked
+    # inverse of a random unit-lower block (entries below 2 / kw), A12 a
+    # view of a 1024 x 65536 bf16 matrix.  Kernel 17 within one bf16 ulp
+    # plus sum_slack of its plain version and at least 99.9% bit-equal, the
+    # matrix untouched; the wrapper's time and its device time alone beside
+    # the bound, the plain version (the parent's route: IEEE fp32 cuBLAS on
+    # upcast copies, then the cast) and PyTorch's bf16 matmul
+    kw17 = bc
+    gen = torch.Generator(device=dev).manual_seed(23)
+    l11_17 = ((torch.rand((kw17, kw17), generator=gen, device=dev) - 0.5)
+              * (4.0 / kw17)).to(BF)
+    linv17 = unit_lower_inv_blocked(l11_17, base=128)
+    wide17 = torch.rand((kw17, BIG_N), generator=gen, device=dev, dtype=BF) - 0.5
+    before17 = wide17.clone()
+    tiles17 = kw17 // 128
+    res17 = {}
+    for w17 in (BIG_N - bc, BIG_N // 2 - bc, bc):
+        a12 = wide17[:, bc:bc + w17]
+        got = u12_product(linv17, a12)
+        ref = u12_product_plain(linv17, a12)
+        rep17 = within_bf16_ulp(got, ref, sum_slack(torch.zeros(ref.shape, device=dev),
+                                                    linv17, a12))
+        equal17 = float((got == ref).double().mean())
+        kept17 = torch.equal(wide17, before17)
+        ms17 = event_ms(lambda: u12_product(linv17, a12), 10)
+        dev17 = graph_ms(lambda: u12_product(linv17, a12))
+        pms17 = event_ms(lambda: u12_product_plain(linv17, a12), 3)
+        lib17 = library(lambda: torch.matmul(linv17, a12))
+        bnd17 = bound(2 * 2 * kw17 * w17 + 2 * kw17 * kw17, 0,
+                      w17 * 128 * 128 * tiles17 * (tiles17 + 1))
+        phase(f"k17_u12_product_w={w17}", rep17.ok and equal17 >= 0.999 and kept17,
+              within_ulp_and_sum_order=rep17.ok, beyond_one_ulp=rep17.beyond,
+              slack_used=f"{rep17.slack_used:.4f}", bit_equal_share=f"{equal17:.6f}",
+              matrix_untouched=kept17, ms=f"{ms17:.4f}", device_ms=f"{dev17:.4f}",
+              bound_ms=f"{bnd17[0]:.4f}", bound_by=bnd17[1], plain_ms=f"{pms17:.4f}",
+              torch_matmul_bf16_ms="none" if lib17 is None else f"{lib17:.4f}",
+              card=f"'{smi}'")
+        res17[w17] = (errs([(got, ref)]), ms17, pms17, bnd17, dev17)
+        del got, ref
+    (abs17, rel17), ms17, pms17, bnd17, dev17 = res17[BIG_N - bc]
+    record("u12_product", abs17, rel17, ms17, pms17, bnd17, pms17, device_ms=dev17,
+           library="the parent's route: matmul_in (IEEE fp32 cuBLAS) and the casts")
+    del l11_17, linv17, wide17, before17
+    torch.cuda.empty_cache()
+
     # ---------------- phase 2d: kernels 13 and 11 vs plain -----------------
     # the lookahead driver's first wide update: rows [e, n) x columns [c0, n)
     # of block column 0, K = 1024, and block column 1's exchange (band
@@ -1718,7 +1781,7 @@ def main() -> int:
         bf16 = policy.working == BF
         masked = MASKED_BF16 if bf16 else MASKED
         want = set(masked if pivot else ("tri_inv", "trailing_sub")
-                   + (() if bf16 else ("npv_inv",)))
+                   + (("u12_product",) if bf16 else ("npv_inv",)))
         if fused_panels:
             want |= set(FUSED_BF16 if bf16 else FUSED)
         counters_ok = (all(launched[k] > 0 for k in want) and not any(plain.values())
@@ -2143,7 +2206,8 @@ def main() -> int:
             kern[name]["launches_masked"] = int(masked_counts[name])
         if name in FUSED_BF16 and name in FUSED + MASKED:
             kern[name]["launches_all_bf16"] = int(bf16_counts[name])
-        paths = [p for p, ks in (("fused", FUSED), ("masked", MASKED), ("all_bf16", FUSED_BF16),
+        paths = [p for p, ks in (("fused", FUSED), ("masked", MASKED),
+                                 ("all_bf16", FUSED_BF16 + ("u12_product",)),
                                  ("lookahead", ("gemmx",)),
                                  ("deferred_exchange", DEFER),
                                  ("pair_layout", FUSED + FUSED_BF16 + PAIRS))

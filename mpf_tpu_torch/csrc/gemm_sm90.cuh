@@ -65,6 +65,19 @@
 //   placements subtract the same fp32 sum with one rounding, so the two
 //   are bitwise equal, kernel 13 is bitwise kernel 6, and a taller or
 //   shifted C gives the same entries.
+//
+// The store instance (kStore; kernel 17, u12.cu): C = bf16(A @ B) with A
+// lower triangular, C written and never read.  The same ring, warpgroups
+// and sum order; three differences.  Tile row i stops its K loop at
+// min(K, 128 (i + 1)): the entries of A right of its diagonal tile are
+// zeros and are not read.  The walk (walk_tile, tri_origin) takes the
+// tiles in windows of 2 x grid, each a run of whole tile columns ordered
+// deepest tile row first, and block b takes tiles b and 2 grid - 1 - b of
+// each window, so the depths of every block's two tiles sum to about the
+// same and the window's B columns stay in L2 while its tile rows read them.
+// The epilogue is the shared-memory placement without the load: each
+// warpgroup rounds its fp32 sums once to bf16 into the slot (the C thread
+// frees the slot where it would load C), and TMA stores it.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (libcuda is reached through the runtime)
@@ -293,6 +306,51 @@ __device__ __forceinline__ void tile_origin(int t, int tiles_m, int tiles_n, int
   n0 = (r / rows) * kBN;
 }
 
+// tile t of the store instance's order -> its origin: chunks of `cols` =
+// ceil(2 grid / tiles_m) whole tile columns (the last chunk may be
+// narrower), each ordered deepest tile row first, then by column
+__device__ __forceinline__ void tri_origin(int t, int tiles_m, int tiles_n, int& m0, int& n0) {
+  const int cols = (2 * (int)gridDim.x + tiles_m - 1) / tiles_m;
+  const int chunk = t / (cols * tiles_m), q = t - chunk * cols * tiles_m;
+  const int w = min(cols, tiles_n - chunk * cols);
+  m0 = (tiles_m - 1 - q / w) * kBM;
+  n0 = (chunk * cols + q % w) * kBN;
+}
+
+// this block's j-th tile: the grid stride, or (kTri) tiles b and 2 grid -
+// 1 - b of each window of 2 grid tiles, b the block
+template <bool kTri>
+__device__ __forceinline__ int walk_tile(int j) {
+  const int b = (int)blockIdx.x, p = (int)gridDim.x;
+  if constexpr (kTri) {
+    return (j >> 1) * 2 * p + ((j & 1) ? 2 * p - 1 - b : b);
+  } else {
+    return b + j * p;
+  }
+}
+
+// how many of the `tiles` tiles this block's walk takes (the grid is at
+// most the tile count, so at least one)
+template <bool kTri>
+__device__ __forceinline__ int walk_count(int tiles) {
+  const int b = (int)blockIdx.x, p = (int)gridDim.x;
+  if constexpr (kTri) {
+    const int rem = tiles % (2 * p);
+    return 2 * (tiles / (2 * p)) + (b < rem) + (2 * p - 1 - b < rem);
+  } else {
+    return (tiles - 1 - b) / p + 1;
+  }
+}
+
+template <bool kTri>
+__device__ __forceinline__ void walk_origin(int t, int tiles_m, int tiles_n, int& m0, int& n0) {
+  if constexpr (kTri) {
+    tri_origin(t, tiles_m, tiles_n, m0, n0);
+  } else {
+    tile_origin(t, tiles_m, tiles_n, m0, n0);
+  }
+}
+
 // The whole routine, run by every thread of a kThreads-thread block with
 // smem_bytes(kSt, kCH) bytes of dynamic shared memory; blocks stride over
 // the tiles.  kRejoin: every thread leaves with kRejoinRegs registers, so
@@ -306,12 +364,15 @@ __device__ __forceinline__ void tile_origin(int t, int tiles_m, int tiles_n, int
 // waits until the stores have read the slots, and loads into each slot the
 // half that takes it next: with one 64 KB slot the next tile's C is on its
 // way as its main loop starts, with one 32 KB slot the first half's is.
-template <typename TC, bool kRejoin, int kSt = kStages, int kCH = 0>
+// kStore: the store instance (C = bf16(A @ B), A lower triangular; the C
+// thread arrives on a slot's full barrier where it would load C).
+template <typename TC, bool kRejoin, int kSt = kStages, int kCH = 0, bool kStore = false>
 __device__ __forceinline__ void run(const CUtensorMap* tmA, const CUtensorMap* tmB,
                                     const CUtensorMap* tmC, int M, int N, int K,
                                     TC* __restrict__ C, i64 ldc) {
   constexpr bool kStagedC = kCH > 0;
   static_assert(!kStagedC || sizeof(TC) == 2, "C through shared memory is bf16 C only");
+  static_assert(!kStore || (kStagedC && !kRejoin), "the store instance is C through shared memory");
   constexpr int kSlots = kStagedC ? kCH : 1, kCBars = c_bars(kCH);
   // halves stored between two waits for the stores' reads: a tile's two
   // where two slots hold them, else one (its slot takes the next half)
@@ -352,10 +413,11 @@ __device__ __forceinline__ void run(const CUtensorMap* tmA, const CUtensorMap* t
       asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(tmB)) : "memory");
       int stage = 0;
       uint32_t phase = 0;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      for (int jt = 0, t = walk_tile<kStore>(0); t < tiles; t = walk_tile<kStore>(++jt)) {
         int m0, n0;
-        tile_origin(t, tiles_m, tiles_n, m0, n0);
-        for (int kb = 0; kb < kblocks; ++kb) {
+        walk_origin<kStore>(t, tiles_m, tiles_n, m0, n0);
+        const int kbt = kStore ? min(kblocks, (m0 + kBM) / kBK) : kblocks;
+        for (int kb = 0; kb < kbt; ++kb) {
           tma::mbar_wait(&empty[stage], phase ^ 1);  // the first round passes
           tma::mbar_arrive_expect_tx(&full[stage], kABytes + kBBytes);
           load_2d(sA + stage * kABytes, tmA, kb * kBK, m0, &full[stage]);
@@ -375,19 +437,23 @@ __device__ __forceinline__ void run(const CUtensorMap* tmA, const CUtensorMap* t
         // the C thread: this block's halves in order (its grid is at most
         // the tile count, so it has at least one tile)
         asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(tmC)) : "memory");
-        const int units = 2 * ((tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1);
+        const int units = 2 * walk_count<kStore>(tiles);
         auto origin = [&](int u, int& m0, int& n0) {
-          tile_origin(blockIdx.x + (u >> 1) * gridDim.x, tiles_m, tiles_n, m0, n0);
+          walk_origin<kStore>(walk_tile<kStore>(u >> 1), tiles_m, tiles_n, m0, n0);
           m0 += 64 * (u & 1);
         };
         auto load_half = [&](int u) {
-          int m0, n0;
-          origin(u, m0, n0);
           uint64_t* bar = &cfull[u % kCBars];
-          tma::mbar_arrive_expect_tx(bar, kCHalf);
+          if constexpr (kStore) {
+            mbar_arrive(bar);  // nothing to load: the slot is free
+          } else {
+            int m0, n0;
+            origin(u, m0, n0);
+            tma::mbar_arrive_expect_tx(bar, kCHalf);
 #pragma unroll
-          for (int j = 0; j < kBN / 64; ++j)
-            load_2d(sC + (u % kSlots) * kCHalf + j * kCBox, tmC, n0 + 64 * j, m0, bar);
+            for (int j = 0; j < kBN / 64; ++j)
+              load_2d(sC + (u % kSlots) * kCHalf + j * kCBox, tmC, n0 + 64 * j, m0, bar);
+          }
         };
         for (int u = 0; u < kSlots && u < units; ++u) load_half(u);
         for (int u0 = 0; u0 < units; u0 += kGroup) {
@@ -419,13 +485,14 @@ __device__ __forceinline__ void run(const CUtensorMap* tmA, const CUtensorMap* t
     int stage = 0;
     uint32_t phase = 0;
     int lt = 0;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++lt) {
+    for (int t = walk_tile<kStore>(0); t < tiles; t = walk_tile<kStore>(++lt)) {
       int m0, n0;
-      tile_origin(t, tiles_m, tiles_n, m0, n0);
+      walk_origin<kStore>(t, tiles_m, tiles_n, m0, n0);
+      const int kbt = kStore ? min(kblocks, (m0 + kBM) / kBK) : kblocks;
 #pragma unroll
       for (int i = 0; i < 128; ++i) d[i] = 0.0f;
       int prev = -1;
-      for (int kb = 0; kb < kblocks; ++kb) {
+      for (int kb = 0; kb < kbt; ++kb) {
         tma::mbar_wait(&full[stage], phase);
         __syncwarp();  // wgmma is warp-aligned
         const uint32_t a0 = tma::smem_addr(sA + stage * kABytes + cw * 64 * 128);
@@ -474,15 +541,20 @@ __device__ __forceinline__ void run(const CUtensorMap* tmA, const CUtensorMap* t
           const int jj = j + (q >> 1);
           const uint32_t addr = row + (jj >> 3) * kCBox + (((jj & 7) ^ r8) << 4);
           uint32_t w[4];
-          asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-                       : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
-                       : "r"(addr));
+          if constexpr (!kStore) {
+            asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+                         : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
+                         : "r"(addr));
+          }
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
             // word k: chunk j + k / 2, row half k % 2: d[4 (j + k / 2) + 2 (k % 2) + c]
             const int di = 4 * (j + (k >> 1)) + 2 * (k & 1);
-            const float lo = __fsub_rn(__uint_as_float(w[k] << 16), d[di]);
-            const float hi = __fsub_rn(__uint_as_float(w[k] & 0xffff0000u), d[di + 1]);
+            float lo = d[di], hi = d[di + 1];
+            if constexpr (!kStore) {
+              lo = __fsub_rn(__uint_as_float(w[k] << 16), lo);
+              hi = __fsub_rn(__uint_as_float(w[k] & 0xffff0000u), hi);
+            }
             asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(w[k]) : "f"(hi), "f"(lo));
           }
           asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};"
@@ -636,6 +708,15 @@ inline int encode_operands(CUtensorMap* ta, CUtensorMap* tb, int M, int N, int K
   if (M <= 0 || N <= 0 || K <= 0) return 0;
   int err = encode(ta, A, M, K, lda, kBM);
   return err ? err : encode(tb, B, K, N, ldb, kBK);
+}
+
+// C (M x N) at a 16-byte base with a row stride and a width N that are
+// multiples of 16 bytes: TMA reads and writes it in place (a store writes
+// whole 16-byte pieces of a row, so on the card it wrote the entries past a
+// ragged N up to the next 16 bytes)
+inline bool c_tma_ok(const void* C, int N, i64 ldc, size_t es) {
+  return (reinterpret_cast<uintptr_t>(C) & 15) == 0 && (ldc * (i64)es) % 16 == 0 &&
+         ((i64)N * (i64)es) % 16 == 0;
 }
 
 inline long long tile_count(int M, int N, int K) {

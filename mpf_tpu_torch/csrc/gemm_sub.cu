@@ -127,15 +127,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   run<TC, false>(&tmA, &tmB, &tmC, M, N, K, C, ldc);
 }
 
-// C (M x N) at a 16-byte base with a row stride and a width N that are
-// multiples of 16 bytes: TMA reads and writes it in place (a store writes
-// whole 16-byte pieces of a row, so on the card it wrote the entries past a
-// ragged N up to the next 16 bytes)
-inline bool c_tma_ok(const void* C, int N, i64 ldc, size_t es) {
-  return (reinterpret_cast<uintptr_t>(C) & 15) == 0 && (ldc * (i64)es) % 16 == 0 &&
-         ((i64)N * (i64)es) % 16 == 0;
-}
-
 // one launch of trailing_kernel<TC, kUpdate> with the epilogue epi; C
 // through shared memory takes bf16 C that c_tma_ok passes, else the call
 // returns cudaErrorInvalidValue

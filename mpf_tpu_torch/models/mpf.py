@@ -32,9 +32,10 @@ The fused path's row exchange is kernel 4 (:func:`rows_exchange`),
 followed by the band write.
 
 Both paths end in the trailing update (`_trailing_update`): U12 =
-L11^{-1} A12 through :func:`unit_lower_inv_blocked` and an IEEE-fp32
-``torch.matmul`` of upcast operands, rounded once to the working dtype,
-then :func:`trailing_gemm_sub` with the policy's ``gemm_in`` operands.
+L11^{-1} A12 through :func:`unit_lower_inv_blocked` and :func:`_u12` (for
+bf16 storage kernel 17, :func:`u12_product`; for fp32 storage an
+IEEE-fp32 ``torch.matmul``), rounded once to the working dtype, then
+:func:`trailing_gemm_sub` with the policy's ``gemm_in`` operands.
 
 The driver reads no environment: the loop above runs unless an explicit
 argument or the input's shape asks for one of three variants of it, as
@@ -91,6 +92,7 @@ from mpf_tpu_torch.precision import PrecisionPolicy, MPF_BF16, cast_to_panel
 from mpf_tpu_torch.ops import _lib
 from mpf_tpu_torch.ops.blas3 import (
     matmul_in,
+    u12_product,
     unit_lower_inv,
     unit_lower_inv_blocked,
     upper_inv,
@@ -429,6 +431,18 @@ def _exchange(a, k: int, bc: int, stage, combined: bool) -> None:
     a[k:k + bc] = rows_exchange(a, k, stage[2], stage[3])
 
 
+def _u12(linv, a12):
+    """U12 = L11^{-1} A12 in ``a12``'s dtype, a new tensor: the route follows
+    the storage dtype alone.  bf16 storage takes :func:`u12_product`
+    (kernel 17 on the card: the same exact products summed in fp32 on the
+    tensor cores, in another order than cuBLAS); fp32 storage, whose
+    operands the tensor cores cannot take without rounding them, IEEE fp32
+    products (cuBLAS on the card)."""
+    if a12.dtype == torch.bfloat16:
+        return u12_product(linv, a12)
+    return matmul_in(linv, a12, a12.dtype).to(a12.dtype)
+
+
 def _trailing_update(a, ks: int, kw: int, ce: int, policy, r: int, lu_diag=None):
     """From the ``kw``-wide packed diagonal block at ``ks``: U12 :=
     L11^{-1} A12 over the columns [ks + kw, ce) (the ``mpf.u12`` stage),
@@ -439,8 +453,8 @@ def _trailing_update(a, ks: int, kw: int, ce: int, policy, r: int, lu_diag=None)
     from ``a``.  Returns L11^{-1} (None when there is nothing to update),
     which the lookahead driver reuses for the wide part.
 
-    U12 is IEEE fp32 products of operands in the working dtype, rounded
-    once."""
+    U12 is fp32 sums of products of operands in the working dtype, rounded
+    once (:func:`_u12`)."""
     e = ks + kw
     w = ce - e
     if w <= 0:
@@ -448,7 +462,7 @@ def _trailing_update(a, ks: int, kw: int, ce: int, policy, r: int, lu_diag=None)
     with _lib.span("mpf.u12"):
         linv = unit_lower_inv_blocked(a[ks:e, ks:e] if lu_diag is None else lu_diag,
                                       base=min(r, 128))
-        u12 = matmul_in(linv, a[ks:e, e:ce], a.dtype).to(a.dtype)
+        u12 = _u12(linv, a[ks:e, e:ce])
         a[ks:e, e:ce] = u12
     with _lib.span("mpf.trailing"):
         l21 = a[e:, ks:e].to(policy.gemm_in)
@@ -504,7 +518,7 @@ def _lookahead_factorize(a, r: int, policy, block: int, ipiv, info, perm_total) 
         if eager:
             continue           # nothing wide to run the exchange in
         with _lib.span("mpf.u12"):
-            u12w = matmul_in(linv, a[k:e, e2:], a.dtype).to(a.dtype)
+            u12w = _u12(linv, a[k:e, e2:])
             a[k:e, e2:] = u12w
         with _lib.span("mpf.trailing"):
             l21 = a[e:, k:e].to(policy.gemm_in)

@@ -57,7 +57,7 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 #: and 11 are on no driver path (tests and the smoke call only);
 #: 15a-15d carry the pair-layout (n/2, 2, n) driver beside 1-6; 16a-16k
 #: are the ``tools/`` design probes (``mpf_tpu_torch/tools``), on no driver
-#: path.
+#: path; 17 is the trailing update's U12 product under bf16 storage.
 KERNELS = (
     "strip_pivots",   # 1  A1 pivot search
     "rowblock",       # 2  A2 row-block assembly
@@ -92,6 +92,7 @@ KERNELS = (
     "probe_xsel",           # 16i xsel_micro: dynamic rows of an on-chip window
     "probe_refview",        # 16j refview_r5: 16e on the (N/g, g, W) view
     "probe_dot",            # 16k crash_bisect_r5: bf16(A @ B)
+    "u12_product",    # 17 U12 = L11^-1 A12 under bf16 storage
 )
 
 launches = {k: 0 for k in KERNELS}
@@ -144,6 +145,7 @@ _SIGS = {
     "mpf_probe_xsel": [I, I, I, I, P, P, P, P],
     "mpf_probe_dot": [I, I, I, P, L, P, L, P, L, P],
     "mpf_probe_overlap": [I, I, I, P, P, P, I, P, I, L, I, I, P, P, P],
+    "mpf_u12_product": [I, I, P, L, P, L, P, L, P],
     "mpf_error_string": [I],
 }
 _RESTYPES = {"mpf_error_string": ctypes.c_char_p, "mpf_hgetf2_scratch_bytes": L,

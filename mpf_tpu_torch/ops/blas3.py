@@ -18,6 +18,10 @@
   product is kept in fp32 and the result rounded to bf16 once, as the JAX
   recursion does (`mpf_tpu/ops/blas3.py:79-85`), never a bf16 cuBLAS
   product.
+* :func:`u12_product` — the trailing update's U12 = L11^{-1} A12 under
+  bf16 storage: kernel 17 (``csrc/u12.cu``, the store instance of kernel
+  6's Hopper routine) on the card, fp32 sums of the exact bf16 products
+  rounded once to bf16.
 """
 
 from __future__ import annotations
@@ -91,6 +95,44 @@ def matmul_in(x: torch.Tensor, y: torch.Tensor, dtype) -> torch.Tensor:
     (IEEE fp32 on the card, never TF32), returned in fp32."""
     with ieee_fp32():
         return x.to(dtype).float() @ y.to(dtype).float()
+
+
+def u12_product_plain(linv: torch.Tensor, a12: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`u12_product`: the IEEE fp32 product of the
+    operands rounded to bf16, rounded once to bf16."""
+    _lib.counted_plain("u12_product")
+    return matmul_in(linv, a12, torch.bfloat16).to(torch.bfloat16)
+
+
+def u12_product(linv: torch.Tensor, a12: torch.Tensor) -> torch.Tensor:
+    """U12 = ``linv`` @ ``a12`` as a new (kw, w) bf16 tensor: the products of
+    the bf16 operands (each exact in fp32) summed in fp32 and rounded once.
+    ``linv`` is the (kw, kw) unit-lower-triangular L11^{-1}, ``a12`` a (kw,
+    w) view of a row-major bf16 matrix.
+
+    CPU tensors take the plain version; CUDA tensors launch kernel 17, which
+    reads ``linv`` only at and left of each 128-row tile's diagonal block
+    (the rest is zero) and sums each entry in ascending 64-deep steps on
+    the tensor cores.  Its result is stored by TMA, so its rows are padded
+    to a multiple of 8 entries: for a ragged w the returned tensor is the
+    (kw, w) view of a (kw, ceil8(w)) buffer, which TMA-fed kernels take
+    as it is.  Operands that TMA cannot read in place are copied first
+    (:func:`_lib.gemm_operand`)."""
+    if not _lib.on_cuda(linv, a12):
+        return u12_product_plain(linv, a12)
+    kw, w = a12.shape
+    _lib.check(linv.shape == (kw, kw), f"u12_product: linv shape {tuple(linv.shape)} "
+               f"!= ({kw}, {kw})")
+    _lib.check(linv.dtype == torch.bfloat16 and a12.dtype == torch.bfloat16,
+               "u12_product: linv and a12 must be bf16")
+    _lib.check(linv.stride(1) == 1 and a12.stride(1) == 1,
+               "u12_product: linv and a12 must be row-major")
+    out = torch.empty((kw, -(-w // 8) * 8), dtype=torch.bfloat16, device=a12.device)
+    l, b = _lib.gemm_operand(linv), _lib.gemm_operand(a12)
+    _lib.call("mpf_u12_product", kw, w, l.data_ptr(), l.stride(0), b.data_ptr(), b.stride(0),
+              out.data_ptr(), out.stride(0))
+    _lib.counted_launch("u12_product")
+    return out[:, :w]
 
 
 def trsm_u12(lu11: torch.Tensor, a12: torch.Tensor, policy=None,

@@ -15,7 +15,8 @@ from mpf_tpu_torch import (
     ALL_BF16, MPF_BF16, MPF_FP16, MPF_REF, PURE_FP32, make_mpf, mpf_factorize)
 from mpf_tpu_torch.ops import _lib
 from mpf_tpu_torch.ops.blas3 import (
-    _leaves, tri_inv_leaves, tri_inv_leaves_plain, unit_lower_inv_blocked)
+    _leaves, matmul_in, tri_inv_leaves, tri_inv_leaves_plain, u12_product,
+    u12_product_plain, unit_lower_inv_blocked)
 from mpf_tpu_torch.ops.exchange import (
     copy_rows_block, copy_rows_block_plain, flush_overflow, flush_overflow_plain, rows_exchange,
     rows_exchange_plain)
@@ -45,7 +46,7 @@ pytestmark = pytest.mark.gpu
 _FUSED = ("strip_pivots", "rowblock", "panel_update", "rows_exchange", "tri_inv",
           "trailing_sub")
 _FUSED_BF16 = ("strip_pivots", "rowblock", "l21_trim", "upd_wide", "rows_exchange",
-               "tri_inv", "trailing_sub")
+               "tri_inv", "trailing_sub", "u12_product")
 _MASKED = ("tri_inv", "trailing_sub", "hgetf2", "npv_inv", "laswp")
 BF = torch.bfloat16
 
@@ -704,9 +705,10 @@ def test_exchange_tri_inv_trailing_bf16(cuda):
 
 
 def test_all_bf16_factorize_on_card(cuda):
-    """ALL_BF16 on the fused route: kernels 1, 2, 12, 4, 5, 6 launched, no
-    kernel 3, no masked kernel, no plain version; device oracle at 5e-2;
-    the pivots equal the CPU run's (plain versions) on the HPL-AI matrix."""
+    """ALL_BF16 on the fused route: kernels 1, 2, 12, 4, 5, 6 and 17 (once:
+    one trailing update) launched, no kernel 3, no masked kernel, no plain
+    version; device oracle at 5e-2; the pivots equal the CPU run's (plain
+    versions) on the HPL-AI matrix."""
     n = 2048
     a = _hpl(n, 6, cuda)
     _lib.reset_counts()
@@ -716,22 +718,80 @@ def test_all_bf16_factorize_on_card(cuda):
     assert not any(_lib.launches[k] for k in _lib.KERNELS if k not in _FUSED_BF16)
     assert not any(_lib.plain_calls.values())
     assert _lib.launches["l21_trim"] == n // 128 and _lib.launches["upd_wide"] == 14
+    assert _lib.launches["u12_product"] == 1
     assert check_factorization_device(a, res.lu, res.ipiv, nbe_tol=5e-2).ok
     cpu = mpf_factorize(a.cpu(), r=128, policy=ALL_BF16)
     assert torch.equal(cpu.ipiv, res.ipiv.cpu()) and torch.equal(cpu.perm, res.perm.cpu())
 
 
+def _u12_operands(kw, w, dev, seed):
+    """linv: the blocked inverse (kernel 5 and the recursion, as the
+    block-column loop builds it) of a random unit-lower bf16 block whose entries lie below 2 /
+    kw, so the inverse stays near one; a12: the (kw, w) view at row 32,
+    column 200 of a wider bf16 matrix, which is returned too."""
+    g = torch.Generator().manual_seed(seed)
+    l11 = ((torch.rand((kw, kw), generator=g) - 0.5) * (4.0 / kw)).to(BF).to(dev)
+    linv = unit_lower_inv_blocked(l11, base=128)
+    big = (torch.rand((kw + 64, w + 328), generator=g) - 0.5).to(BF).to(dev)
+    return linv, big, big[32:32 + kw, 200:200 + w]
+
+
+@pytest.mark.parametrize("kw,w", [(1024, 1024), (1024, 3000), (250, 700), (1024, 31744)])
+def test_u12_product_kernel(cuda, kw, w):
+    """Kernel 17 against its plain version (the IEEE fp32 product of the
+    bf16 operands, rounded once) with A12 a view of a wider matrix: every
+    entry within one bf16 ulp plus the fp32 sum-order bound (sum_slack), at
+    least 99.9% bit-equal; one launch, no plain call inside it; the matrix
+    around A12 untouched; the result's rows padded to a multiple of 8
+    entries, the padding zeros."""
+    linv, big, a12 = _u12_operands(kw, w, cuda, kw + w)
+    before = big.clone()
+    _lib.reset_counts()
+    got = u12_product(linv, a12)
+    torch.cuda.synchronize()
+    assert _lib.launches["u12_product"] == 1 and not any(_lib.plain_calls.values())
+    w8 = -(-w // 8) * 8
+    assert got.dtype == BF and got.shape == (kw, w) and got.stride() == (w8, 1)
+    ref = u12_product_plain(linv, a12)
+    rep = within_bf16_ulp(got, ref, sum_slack(torch.zeros(ref.shape, device=cuda), linv, a12))
+    assert rep.ok, rep
+    assert float((got == ref).double().mean()) >= 0.999
+    assert torch.equal(big, before)
+    assert not got.as_strided((kw, w8), (w8, 1))[:, w:].any()
+
+
+def test_all_bf16_u12_keeps_the_matmul_in_pivots(cuda, monkeypatch):
+    """ALL_BF16 at n = 16384 on HPL-AI: with kernel 17 (15 launches) the
+    pivots and row map are exactly those of the same factorization with
+    U12 on the ``matmul_in`` route (IEEE fp32 cuBLAS, then the cast),
+    called in this test; both pass the device oracle."""
+    from mpf_tpu_torch.utils.matgen import hpl_ai_matrix_device
+    n = 16384
+    a = hpl_ai_matrix_device(n, seed=19, dtype=BF, device=cuda)
+    _lib.reset_counts()
+    res = mpf_factorize(a, r=128, policy=ALL_BF16)
+    assert _lib.launches["u12_product"] == n // 1024 - 1
+    monkeypatch.setattr(mpf_loop, "_u12",
+                        lambda linv, a12: matmul_in(linv, a12, a12.dtype).to(a12.dtype))
+    _lib.reset_counts()
+    ref = mpf_factorize(a, r=128, policy=ALL_BF16)
+    assert _lib.launches["u12_product"] == 0
+    assert torch.equal(res.ipiv, ref.ipiv) and torch.equal(res.perm, ref.perm)
+    for x in (res, ref):
+        assert check_factorization_device(a, x.lu, x.ipiv, nbe_tol=5e-2).ok
+
+
 @pytest.mark.parametrize("pivot", [True, False])
 def test_all_bf16_masked_on_card(cuda, pivot):
     """ALL_BF16 off the fused gate (r = 48, block 250, 250 % 48 != 0):
-    kernels 5, 6 and, with pivoting, 7 and 9 launched; kernel 8 not (the
-    bf16 diagonal is PyTorch ops); no plain version; device oracle at
-    5e-2."""
+    kernels 5, 6, 17 (the trailing update's U12) and, with pivoting, 7 and
+    9 launched; kernel 8 not (the bf16 diagonal is PyTorch ops); no plain
+    version; device oracle at 5e-2."""
     n = 1000
     a = _hpl(n, 7, cuda)
     _lib.reset_counts()
     res = mpf_factorize(a, r=48, policy=ALL_BF16, block=250, pivot=pivot)
-    want = ("tri_inv", "trailing_sub") + (("hgetf2", "laswp") if pivot else ())
+    want = ("tri_inv", "trailing_sub", "u12_product") + (("hgetf2", "laswp") if pivot else ())
     assert all(_lib.launches[k] > 0 for k in want), _lib.launches
     assert not any(_lib.launches[k] for k in _lib.KERNELS if k not in want)
     assert not any(_lib.plain_calls.values())
